@@ -1,0 +1,105 @@
+"""Conversion of the JAX package's configuration and state into the port's.
+
+The system has no weights: its state is its configuration (``SlamDims``,
+``SlamParams``, ``FeatureConfig``, ``ICPConfig``, ``DRConfig``) and, mid-run,
+a ``SlamCarry``. Each function here takes the JAX package's object with its
+arrays already turned into numpy arrays (``np.asarray`` on every leaf) and
+its other values as plain Python values, and returns the port's equivalent.
+Nothing here imports JAX: the objects are read by field name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .cloud import ICPConfig
+from .estimators import DRConfig
+from .graph import GraphState
+from .slam.core import SlamCarry, SlamDims, SlamParams
+from .slam.frontend import FeatureConfig
+
+_INT_COUNTERS = ("num_kf", "q_head", "num_loops")
+
+
+def _fields(obj) -> dict:
+    if isinstance(obj, dict):
+        return dict(obj)
+    if dataclasses.is_dataclass(obj):
+        return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    return dict(obj._asdict())
+
+
+def icp_config_from_reference(cfg) -> ICPConfig:
+    return ICPConfig(**_fields(cfg))
+
+
+def feature_config_from_reference(cfg) -> FeatureConfig:
+    return FeatureConfig(**_fields(cfg))
+
+
+def dr_config_from_reference(cfg) -> DRConfig:
+    src = _fields(cfg)
+    return DRConfig(**{k: (bool(src[k]) if k == "use_gyro" else float(src[k]))
+                       for k in DRConfig._fields})
+
+
+def dims_from_reference(dims) -> SlamDims:
+    """The port's ``SlamDims`` fields of ``dims``. Loop refinement is not
+    ported, so ``refine_iters > 0`` raises; with it off, the other
+    ``refine_*`` fields (and the TPU scan's ``scan_chunk``) change nothing
+    and are dropped."""
+    src = _fields(dims)
+    if src.get("refine_iters", 0) > 0:
+        raise NotImplementedError(
+            "SlamDims.refine_iters > 0: loop refinement (slam/refine.py) is "
+            "not ported")
+    f = {k.name: src[k.name] for k in dataclasses.fields(SlamDims)}
+    f["icp"] = icp_config_from_reference(f["icp"])
+    return SlamDims(**f)
+
+
+def params_from_reference(params, device) -> SlamParams:
+    """Scalars become Python numbers holding the exact float32 value, flags
+    Python bools, vectors float32 tensors on ``device``."""
+    src = _fields(params)
+    out = {}
+    for name, ann in SlamParams.__annotations__.items():
+        ann = getattr(ann, "__forward_arg__", ann)
+        v = np.asarray(src[name])
+        if ann == "torch.Tensor":
+            out[name] = torch.as_tensor(v.astype(np.float32), device=device)
+        elif ann == "bool":
+            out[name] = bool(v)
+        elif ann == "int":
+            out[name] = int(v)
+        else:
+            out[name] = float(np.float32(v))
+    return SlamParams(**out)
+
+
+def _tensor(v, device):
+    a = np.asarray(v)
+    if a.dtype.kind in "iu":
+        a = a.astype(np.int64)
+    elif a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device)
+
+
+def carry_from_reference(carry, device) -> SlamCarry:
+    """A ``SlamCarry`` of numpy leaves -> the port's carry on ``device``."""
+    src = _fields(carry)
+    out = {}
+    for name in SlamCarry._fields:
+        if name in _INT_COUNTERS:
+            out[name] = int(np.asarray(src[name]))
+        elif name == "graph":
+            g = _fields(src[name])
+            out[name] = GraphState(**{k: _tensor(g[k], device)
+                                      for k in GraphState._fields})
+        else:
+            out[name] = _tensor(src[name], device)
+    return SlamCarry(**out)

@@ -1,0 +1,15 @@
+"""SE(2) pose algebra and the pose3 helpers, on torch tensors."""
+
+from .se2 import (
+    se2_between,
+    se2_compose,
+    se2_expmap,
+    se2_inverse,
+    se2_local_coordinates,
+    se2_logmap,
+    se2_retract,
+    se2_rotmat,
+    se2_transform_points,
+    wrap_angle,
+)
+from .se3 import pose3_make, pose3_to_pose2

@@ -1,0 +1,129 @@
+"""CFAR parity: the port's plain version against the JAX package.
+
+* Against ``cfar_pallas_batch`` in interpret mode (patched the way
+  tests/test_cfar_pallas.py does it) the mask must be EXACT: both add the
+  training rows in the same order and compute ``tau * (min / train_hs)``.
+  The thresholds agree to one float32 ulp (relative 2.5e-7): XLA on the CPU
+  rewrites the division by the constant ``train_hs``.
+* Against the XLA ``cfar_*2`` functions, which take prefix-sum differences
+  and compute ``tau * min / train_hs``, the thresholds differ in the last
+  bits: the mask must agree except at pixels within a relative 1e-5 of
+  their threshold (float32 prefix sums over 40 cells of values up to ~1e3
+  carry ~1e-6 relative error).
+* OS (a sort over the same window values) is exact against ``cfar_os2``.
+* The CUDA kernel against the plain version is in test_torch_cfar_cuda.py.
+"""
+
+from unittest import mock
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import sonar_slam_tpu.kernels.cfar as jcfar
+import sonar_slam_torch.kernels.cfar as tcfar
+from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_plain
+
+torch.set_num_threads(1)
+MARGIN = 1e-5
+
+
+def _pings(seed, shape):
+    rng = np.random.default_rng(seed)
+    x = rng.exponential(20.0, size=shape).astype(np.float32)
+    flat = x.reshape(-1, shape[-2], shape[-1])
+    for b in range(flat.shape[0]):
+        r = rng.integers(0, shape[-2], 6)
+        c = rng.integers(0, shape[-1], 6)
+        flat[b, r, c] += rng.uniform(100, 700, 6).astype(np.float32)
+    flat[0, 1, 2] = 500.0  # inside the strict border band
+    return x
+
+
+def _pallas(imgs, t, g, tau, mode, gate, edge):
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def patched(*args, **kw):
+        kw["interpret"] = True
+        return orig(*args, **kw)
+
+    with mock.patch.object(pl, "pallas_call", patched):
+        from sonar_slam_tpu.kernels.cfar_pallas import cfar_pallas_batch
+
+        det, thr = cfar_pallas_batch(jnp.asarray(imgs), t, g, tau, mode,
+                                     intensity_threshold=gate, edge=edge)
+    return np.asarray(det), np.asarray(thr)
+
+
+@pytest.mark.parametrize("mode", ["CA", "SOCA", "GOCA"])
+@pytest.mark.parametrize("edge,gate", [("strict", None), ("extend", 65.0)])
+def test_plain_matches_pallas_exactly(mode, edge, gate):
+    imgs = _pings(0, (2, 80, 24))
+    t, g, tau = 10, 3, 2.7
+    jdet, jthr = _pallas(imgs, t, g, tau, mode, gate, edge)
+    det, thr = cfar_plain(torch.as_tensor(imgs), t, g, tau, mode, gate, edge)
+    np.testing.assert_array_equal(det.numpy(), jdet)
+    np.testing.assert_allclose(thr.numpy(), jthr, rtol=2.5e-7, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["CA", "SOCA", "GOCA"])
+@pytest.mark.parametrize("edge", ["strict", "extend"])
+def test_plain_matches_xla_within_margin(mode, edge):
+    img = _pings(1, (96, 40))
+    t, g, tau = 10, 2, 3.3
+    jfn = {"CA": jcfar.cfar_ca2, "SOCA": jcfar.cfar_soca2,
+           "GOCA": jcfar.cfar_goca2}[mode]
+    tfn = {"CA": tcfar.cfar_ca2, "SOCA": tcfar.cfar_soca2,
+           "GOCA": tcfar.cfar_goca2}[mode]
+    jdet, jthr = (np.asarray(a) for a in jfn(jnp.asarray(img), t, g, tau, edge))
+    det, thr = (a.numpy() for a in tfn(torch.as_tensor(img), t, g, tau, edge))
+    np.testing.assert_allclose(thr, jthr, rtol=MARGIN, atol=1e-4)
+    near = np.abs(img - jthr) <= MARGIN * np.abs(jthr)
+    np.testing.assert_array_equal(det[~near], jdet[~near])
+    assert det.sum() > 0
+
+
+@pytest.mark.parametrize("edge", ["strict", "extend"])
+def test_os_matches_xla(edge):
+    img = _pings(2, (72, 20))
+    jdet, jthr = (np.asarray(a) for a in jcfar.cfar_os2(jnp.asarray(img), 10, 2,
+                                                         7, 2.5, edge))
+    det, thr = tcfar.cfar_os2(torch.as_tensor(img), 10, 2, 7, 2.5, edge)
+    np.testing.assert_array_equal(det.numpy(), jdet)
+    np.testing.assert_array_equal(thr.numpy(), jthr)
+
+
+@pytest.mark.parametrize("alg", ["CA", "SOCA", "GOCA", "OS"])
+def test_cfar_class_matches(alg):
+    img = _pings(3, (80, 16))
+    jd = np.asarray(jcfar.CFAR(20, 4, 0.1, 6, edge="extend").detect(
+        jnp.asarray(img), alg))
+    td = tcfar.CFAR(20, 4, 0.1, 6, edge="extend").detect(torch.as_tensor(img), alg)
+    thr = np.asarray(jcfar.CFAR(20, 4, 0.1, 6, edge="extend").detect2(
+        jnp.asarray(img), alg)[1])
+    near = np.abs(img - thr) <= MARGIN * np.abs(thr)
+    np.testing.assert_array_equal(td.numpy()[~near], jd[~near])
+
+
+def test_detect_on_cpu_is_the_plain_version():
+    imgs = torch.as_tensor(_pings(4, (3, 64, 16)))
+    det, thr = cfar_detect(imgs, 8, 2, 3.0, "SOCA", 65.0, "extend",
+                           with_threshold=True)
+    pdet, pthr = cfar_plain(imgs, 8, 2, 3.0, "SOCA", 65.0, "extend")
+    assert det.dtype == torch.bool and det.shape == imgs.shape
+    assert torch.equal(det, pdet) and torch.equal(thr, pthr)
+
+
+def test_detect_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((2, 32, 8))
+    with pytest.raises(TypeError):
+        cfar_detect(x.double(), 4, 1, 2.0)
+    with pytest.raises(ValueError):
+        cfar_detect(x[0], 4, 1, 2.0)
+    with pytest.raises(ValueError):
+        cfar_detect(x, 4, 1, 2.0, edge="wrap")
+    with pytest.raises(RuntimeError):
+        cfar_detect(torch.zeros((2, 32, 8), device="meta"), 4, 1, 2.0)
