@@ -7,21 +7,33 @@ the script exits non-zero without printing the result line:
 
 1. device: a CUDA card is required (there is no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CFAR kernel (kernels/csrc/cfar.cu) with nvcc;
-3. kernel against plain version: the CUDA kernel and its plain PyTorch
-   version on the same simulated full-geometry pings, (128, 512, 256) SOCA
-   with edge extension and the intensity gate at 65, plus CA, GOCA and the
-   strict edge at a small shape. The masks must agree exactly and the
-   threshold maps to 1e-6 relative; times by CUDA events after warm-up;
-4. slice: ``pipeline.replay`` at bench.py's full configuration (480 s survey
-   at 5 Hz, 2,400 pings of 512 x 256, 128 keyframe slots, refinement off),
-   seed 0, with the CFAR launch counter reset just before. Checks a finite
-   trajectory, the keyframe and loop counts, ATE within the bands below,
-   and at least 3 CFAR launches;
-5. reference: the small configuration (bench.py --small, refinement off) on
-   the card, twice, stage by stage against the port on the CPU and as a
+2. build: compiles the CFAR kernels (kernels/csrc/cfar.cu) with nvcc;
+3. kernels against plain versions, on the same simulated full-geometry
+   pings: the sum kernel at (128, 512, 256) SOCA with edge extension and the
+   intensity gate at 65, plus CA, GOCA and the strict edge at a small shape
+   (masks equal, thresholds to 1e-6 relative); the OS kernel at
+   (128, 512, 256), extend, gate 65, rank 10, plus ranks 0, 10 and 39 with
+   both edges at (4, 96, 40), on the float pings and on an integer-valued
+   copy (masks and thresholds bit for bit equal). Times by CUDA events
+   after warm-up, in the order plain, kernel, kernel, plain;
+4. the SOCA slice: ``pipeline.replay`` at bench.py's full configuration
+   with refinement off (480 s survey at 5 Hz, 2,400 pings of 512 x 256,
+   128 keyframe slots), seed 0, with the CFAR launch counter reset just
+   before. Checks a finite trajectory, the keyframe and loop counts, ATE
+   within the bands below, and at least 3 CFAR launches;
+5. the OS slice: the same survey through bench.py's whole full pipeline
+   with the order-statistic detector: ``replay`` with bench.py's
+   refinement (``refine_loops``), then the mapping stage, ``map_metrics``
+   and ``loop_metrics``, with the launch counter reset just before. Checks
+   the keyframe count, a finite trajectory, loops, ATE and the map metrics
+   within the bands below, and at least 3 OS launches;
+6. reference, refinement off: the small configuration (bench.py --small)
+   on the card, twice, stage by stage against the port on the CPU and as a
    whole against the JAX package's results for the same input
-   (tests/golden/small_norefine_traj.npz); see ``check_small``.
+   (tests/golden/small_norefine_traj.npz); see ``check_small``;
+7. reference, refinement on: the small configuration with refinement
+   against the JAX package's result (tests/golden/small_traj.npz), twice;
+   see ``check_small_refine``.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -37,7 +49,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# The full-config slice (seed 0, refinement off). No JAX result of this
+# The full-config SOCA slice (seed 0, refinement off). No JAX result of this
 # configuration with refinement off is recorded, and the full size is not run
 # on a host CPU, so the expected values are the port's own on an H100 80GB
 # HBM3 (700 W), the same in each of six runs in three processes: 73
@@ -48,6 +60,21 @@ FULL_KEYFRAMES = 73
 FULL_LOOPS = 7
 FULL_ATE_M, FULL_ATE_BAND_M = 0.0606, 0.015
 FULL_ATE_DEG, FULL_ATE_BAND_DEG = 0.146, 0.1
+# The full-config OS slice (seed 0, bench.py's refinement and mapping). No
+# JAX result of it is recorded either (the JAX package's full runs use SOCA),
+# so the bands are two-sided around the port's own result on an H100 80GB
+# HBM3 (700 W): 95 loops, ATE 0.0282 m / 0.153 deg, map precision 0.951 and
+# recall 0.722. The keyframe count depends only on dead reckoning, so it
+# must equal the SOCA slice's.
+OS_LOOPS, OS_LOOPS_BAND = 95, 3
+OS_ATE_M, OS_ATE_BAND_M = 0.0282, 0.01
+OS_ATE_DEG, OS_ATE_BAND_DEG = 0.153, 0.1
+OS_MAP_PRECISION, OS_MAP_PRECISION_BAND = 0.951, 0.02
+OS_MAP_RECALL, OS_MAP_RECALL_BAND = 0.722, 0.02
+# the JAX package's full config with SOCA and refinement, seed 0, on a TPU
+# (BENCH_r05.json): printed beside the OS slice for scale only
+BENCH_R05_SOCA = {"ate_cm": 3.33, "ate_deg": 0.147, "loops": 95,
+                  "map_precision": 0.947, "map_recall": 0.721}
 # small-config checks (see check_small): stage outputs on the card against
 # the CPU, and the card's trajectory against a JAX result, within
 # SCAN_ATOL_M; the card's ATE within SMALL_ATE_BAND_M of the JAX result's,
@@ -78,11 +105,10 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def full_config(seed: int = 0):
     """bench.py's full configuration with refinement off (bench.py
-    --no-refine), in the port's types; bench.py's refine_* options do
-    nothing with refinement off and have no counterpart here."""
+    --no-refine), in the port's types."""
     from sonar_slam_torch.cloud import ICPConfig
     from sonar_slam_torch.io.simulate import SimConfig
-    from sonar_slam_torch.slam import FeatureConfig, SlamDims, SlamParams
+    from sonar_slam_torch.slam import FeatureConfig, SlamDims
 
     icp_prod = ICPConfig(max_iterations=12, min_diff_rot=1e-3,
                          min_diff_trans=1e-2, point_to_line=True,
@@ -102,6 +128,34 @@ def full_config(seed: int = 0):
                      nssm_every=5, icp_floor=(0.2, 0.2, 0.1))
     return sim, dims, params, FeatureConfig(max_points=dims.max_points,
                                             corroborate=True)
+
+
+def full_os_config(seed: int = 0):
+    """bench.py's whole full configuration (bench.py:232-273), refinement
+    included, with its RefineParams overrides (bench.py:350-359) and the
+    order-statistic detector: (sim, dims, params, FeatureConfig,
+    RefineParams), the last two built on a device by ``params`` and
+    ``refine_params``."""
+    import dataclasses
+
+    import numpy as np
+    from sonar_slam_torch.slam import FeatureConfig, RefineParams
+
+    sim, dims, params, _ = full_config(seed)
+    dims = dataclasses.replace(
+        dims, refine_iters=2, refine_sweep=True, refine_chain=True,
+        refine_final_sweep=True, refine_scale_from_chain=True,
+        refine_scale_basis=True, refine_sweep_budget=0,
+        refine_incremental=True)
+
+    def refine_params(device):
+        return RefineParams.default(device)._replace(
+            prune_max_dt=float(np.float32(0.18)),
+            prune_max_dr=float(np.float32(0.06)), sweep_min_inliers=15)
+
+    fcfg = FeatureConfig(alg="OS", rank=10, max_points=dims.max_points,
+                         corroborate=True)
+    return sim, dims, params, fcfg, refine_params
 
 
 def small_config(seed: int = 0):
@@ -202,6 +256,131 @@ def check_kernel(imgs):
             "ms": min(k1, k2), "plain_ms": min(p1, p2)}
 
 
+def check_os_kernel(imgs):
+    """OS kernel against its plain version; returns the kernel table entry.
+
+    Both select the exact k-th smallest training cell, so the masks and the
+    threshold maps must be bit for bit equal, on the float pings and on an
+    integer-valued copy. (128, 512, 256) with rank 10 is the main path's
+    shape; ranks 0 and 39 are the window's ends, and (4, 96, 40) crosses
+    both border bands."""
+    import torch
+    from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_os_plain
+    from sonar_slam_torch.kernels.cfar_factors import threshold_factor_os
+
+    t, g, gate, rank = 20, 5, 65.0, 10
+    tau = threshold_factor_os(40, rank, 0.1)
+    small = imgs[:4, :96, :40].contiguous()
+    cases = [(imgs, rank, "extend")] + [
+        (small, k, edge) for k in (0, 10, 39) for edge in ("strict", "extend")]
+    thr_err = 0.0
+    for kind, prep in (("float", None), ("integer", torch.round)):
+        for case, k, edge in cases:
+            view = case if prep is None else prep(case)
+            dk, tk = cfar_detect(view, t, g, tau, "OS", gate, edge,
+                                 with_threshold=True, rank=k)
+            dp, tp = cfar_os_plain(view, t, g, k, tau, gate, edge)
+            torch.cuda.synchronize()
+            mm = int((dk != dp).sum())
+            err = float((tk - tp).abs().max())
+            bitwise = bool(torch.equal(tk, tp))
+            log(f"cfar OS {edge} rank {k} {kind} {tuple(view.shape)}: mask "
+                f"mismatches {mm} of {dp.numel()}, detections {int(dp.sum())}, "
+                f"threshold max abs err {err} (bitwise equal: {bitwise})")
+            if mm != 0 or not bitwise:
+                raise RuntimeError(f"OS kernel disagrees ({edge}, rank {k}, "
+                                   f"{kind})")
+            if case is imgs and prep is None:
+                thr_err = err
+            del view, dk, tk, dp, tp
+
+    def kern():
+        cfar_detect(imgs, t, g, tau, "OS", gate, "extend", rank=rank)
+
+    def plain():
+        cfar_os_plain(imgs, t, g, rank, tau, gate, "extend")
+
+    # plain, kernel, kernel, plain on the same card
+    p1 = cuda_time_ms(plain, reps=5, warmup=1)
+    k1 = cuda_time_ms(kern)
+    k2 = cuda_time_ms(kern)
+    p2 = cuda_time_ms(plain, reps=5, warmup=1)
+    log(f"cfar OS extend rank 10 (128, 512, 256) ms: kernel {k1} {k2}, plain "
+        f"{p1} {p2}")
+    return {"name": "cfar_os_kernel (OS, exact k-th smallest, fused "
+                    "intensity gate)",
+            "route": "cuda",
+            "source": "sonar_slam_torch/kernels/csrc/cfar.cu",
+            "replaces": "sonar_slam_tpu/kernels/cfar_pallas.py:63",
+            "launches": 0, "max_abs_err": thr_err,
+            "ms": min(k1, k2), "plain_ms": min(p1, p2)}
+
+
+def run_os_path(bag, dev) -> int:
+    """The OS slice at full width: replay with refinement, the mapping
+    stage and the scores, held to the bands above. Returns the OS launch
+    count of the run."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.mapping import map_metrics
+    from sonar_slam_torch.pipeline import (ate_heading_deg, ate_rmse,
+                                           loop_metrics, occupancy_map, replay)
+
+    sim, dims, params_on, fcfg, refine_on = full_os_config(seed=0)
+    params, rparams = params_on(dev), refine_on(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfar_cuda.cfar_detect.launches = 0
+    t0 = time.perf_counter()
+    res = replay(bag, fcfg, params, dims, dev, refine_params=rparams)
+    t1 = time.perf_counter()
+    occ, mcfg = occupancy_map(res.carry, bag.geometry, dims.max_keyframes)
+    torch.cuda.synchronize()
+    stage_s = dict(res.stage_s, mapping=time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    launches = cfar_cuda.cfar_detect.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    nk = res.num_keyframes
+    truth = bag.true_pose_at_ping[res.keyframe_ping_idx]
+    ate = ate_rmse(res.trajectory, truth)
+    ate_deg = ate_heading_deg(res.trajectory, truth)
+    lm = loop_metrics(res.carry, truth, dims.nssm_min_st_sep,
+                      prox_radius=0.5 * dims.max_range)
+    mm = map_metrics(occ.cpu().numpy(), mcfg, bag.world_points, truth,
+                     res.trajectory, dims.max_range, dims.half_aperture)
+    nl = res.carry.num_loops
+    log(f"OS path: {nk} keyframes, {nl} loops, ATE {ate:.4f} m / "
+        f"{ate_deg:.3f} deg, loop precision {lm['precision']} recall "
+        f"{lm['recall']} (median error {lm['loop_err_median_cm']} cm), map "
+        f"precision {mm['precision']} recall {mm['recall']} chamfer "
+        f"{mm['chamfer_cm']} cm ({mm['occupied_cells']} occupied cells), "
+        f"DVL log-scale {res.carry.graph.log_scale.tolist()}")
+    log(f"OS path: stages s {json.dumps(stage_s)}, wall {wall:.2f} s, peak "
+        f"memory {peak / 2**20:.1f} MiB, OS launches {launches}")
+    log(f"OS path, for scale only: the JAX package's full config with SOCA "
+        f"and refinement on a TPU (BENCH_r05.json) {json.dumps(BENCH_R05_SOCA)}")
+    if not np.isfinite(res.trajectory).all():
+        raise RuntimeError("OS path: trajectory not finite")
+    if launches < 3:
+        raise RuntimeError(f"OS path made {launches} CFAR launches, expected >= 3")
+    checks = {
+        "keyframes": nk == FULL_KEYFRAMES,
+        "loops": abs(nl - OS_LOOPS) <= OS_LOOPS_BAND,
+        "ATE m": abs(ate - OS_ATE_M) <= OS_ATE_BAND_M,
+        "ATE deg": abs(ate_deg - OS_ATE_DEG) <= OS_ATE_BAND_DEG,
+        "map precision": mm["precision"] is not None and abs(
+            mm["precision"] - OS_MAP_PRECISION) <= OS_MAP_PRECISION_BAND,
+        "map recall": mm["recall"] is not None and abs(
+            mm["recall"] - OS_MAP_RECALL) <= OS_MAP_RECALL_BAND,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"OS path outside its bands: {failed}")
+    return launches
+
+
 def check_small(dev):
     """bench.py --small (refinement off) on the card, checked by stage.
 
@@ -282,6 +461,64 @@ def check_small(dev):
         raise RuntimeError("small-config replay disagrees with the JAX result")
 
 
+def check_small_refine(dev):
+    """bench.py --small with refinement on (tests/test_golden.py's
+    configuration) on the card, twice, against the JAX package's results.
+
+    The survey's ill-conditioned first loop (see ``check_small``) shows here
+    too: the JAX package on its own dead reckoning logs 9 loops
+    (tests/golden/small_traj.npz), and fed the port's dead-reckoning poses 8
+    loops, 0.081 m away (tests/golden/small_traj_port_dr.npz). So the card
+    must give the JAX keyframe pings, and the loop count and a trajectory
+    within SCAN_ATOL_M of one of the two results. The second replay, after
+    the allocator's free memory is filled with NaN, must repeat the first
+    bit for bit. The CPU tests hold the port on the CPU to the first result
+    (tests/test_torch_replay_refine.py)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sonar_slam_torch.io.simulate import simulate_bag
+    from sonar_slam_torch.pipeline import ate_heading_deg, ate_rmse, replay
+
+    sim, dims, params_on, fcfg = small_config(seed=0)
+    dims = dataclasses.replace(dims, refine_iters=2, refine_sweep=True,
+                               refine_chain=True)
+    bag = simulate_bag(sim)
+    refs = {name: np.load(os.path.join(HERE, "tests", "golden", name))
+            for name in ("small_traj.npz", "small_traj_port_dr.npz")}
+    t0 = time.perf_counter()
+    gpu = replay(bag, fcfg, params_on(dev), dims, dev)
+    wall = time.perf_counter() - t0
+    torch.full((1 << 28,), float("nan"), device=dev)  # freed, stays cached
+    again = replay(bag, fcfg, params_on(dev), dims, dev)
+    repeat = float(np.abs(again.trajectory - gpu.trajectory).max())
+    kf = refs["small_traj.npz"]["keyframe_ping_idx"]
+    truth = bag.true_pose_at_ping[kf]
+    match = {}
+    for name, ref in refs.items():
+        err = (float(np.abs(gpu.trajectory - ref["trajectory"]).max())
+               if gpu.trajectory.shape == ref["trajectory"].shape
+               else float("inf"))
+        match[name] = (int(ref["num_loops"]), err,
+                       ate_rmse(ref["trajectory"], truth))
+    log(f"small config with refinement on the card: {gpu.num_keyframes} "
+        f"keyframes, {gpu.carry.num_loops} loops, ATE m/deg "
+        f"{(ate_rmse(gpu.trajectory, truth), ate_heading_deg(gpu.trajectory, truth))}; "
+        f"JAX results (loops, trajectory max abs diff m, ATE m): "
+        f"{json.dumps(match)}; stages s {json.dumps(gpu.stage_s)}, wall "
+        f"{wall:.2f} s; second run after a NaN fill: max abs diff {repeat} m")
+    if not np.array_equal(again.trajectory, gpu.trajectory):
+        raise RuntimeError("refined small-config replay on the card does not "
+                           "repeat")
+    if not np.array_equal(gpu.keyframe_ping_idx, kf):
+        raise RuntimeError("refined small config: keyframes differ from JAX")
+    if not any(loops == gpu.carry.num_loops and err <= SCAN_ATOL_M
+               for loops, err, _ in match.values()):
+        raise RuntimeError("refined small-config replay disagrees with both "
+                           "JAX results")
+
+
 def main() -> int:
     import torch
 
@@ -306,11 +543,11 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # 2) build
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     lib = cfar_cuda.build()
-    log(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.2f} s")
+    log(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t_start:.2f} s")
 
-    # 3) kernel against plain version, on simulated full-geometry pings
+    # 3) kernels against plain versions, on simulated full-geometry pings
     sim, dims, params_on, fcfg = full_config(seed=0)
     t0 = time.perf_counter()
     bag = simulate_bag(sim)
@@ -318,9 +555,11 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f} s")
     imgs = torch.as_tensor(bag.ping_images[:128], device=dev).contiguous()
     entry = check_kernel(imgs)
+    entry_os = check_os_kernel(imgs)
     del imgs
+    torch.cuda.empty_cache()
 
-    # 4) the slice: full-config replay on the card
+    # 4) the SOCA slice: full-config replay with refinement off
     params = params_on(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -352,13 +591,23 @@ def main() -> int:
             f"ATE {ate} m / {ate_deg} deg outside {FULL_ATE_M} +- "
             f"{FULL_ATE_BAND_M} m / {FULL_ATE_DEG} +- {FULL_ATE_BAND_DEG} deg")
     entry["launches"] = launches
-    del bag, res
+    del res
 
-    # 5) small configuration: the card against the port on the CPU (which
-    # the CPU tests hold to the JAX package) and against the JAX result
+    # 5) the OS slice: bench.py's whole full pipeline with the OS detector
+    entry_os["launches"] = run_os_path(bag, dev)
+    del bag
+
+    # 6) small configuration, refinement off: the card against the port on
+    # the CPU (which the CPU tests hold to the JAX package) and against the
+    # JAX result
     check_small(dev)
 
-    log(json.dumps({"kernels": [entry]}))
+    # 7) small configuration, refinement on, against the JAX result
+    check_small_refine(dev)
+
+    log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "
+        f"(from the build)")
+    log(json.dumps({"kernels": [entry, entry_os]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

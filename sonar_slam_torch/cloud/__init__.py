@@ -2,7 +2,14 @@
 filtering, voxel downsampling, normals and batched ICP."""
 
 from .filters import remove_outlier
-from .icp import ICPConfig, ICPResult, censi_covariance, icp, icp_multistart
+from .icp import (
+    ICPConfig,
+    ICPResult,
+    censi_covariance,
+    icp,
+    icp_multistart,
+    icp_pairs,
+)
 from .knn import count_overlap, nn_match, pairwise_sq_dists
 from .normals import estimate_normals
 from .voxel import (

@@ -1,13 +1,18 @@
-"""Trimmed point-to-point / point-to-line ICP on SE(2), batched over starts.
+"""Trimmed point-to-point / point-to-line ICP on SE(2), batched over lanes.
 
 Counterpart of ``sonar_slam_tpu/cloud/icp.py``. The JAX version runs a
-``while_loop`` under ``vmap``: each start ("lane") iterates until its
-differential checker fires, it starves of matches, or it reaches
-``max_iterations``, and a finished lane stays frozen while the others go on.
-Here the lanes are a leading batch axis and the loop runs at most
-``max_iterations`` trips; a lane takes a trip's update only while
-``~done & (iters < max_iterations)``. The loop stops early once no lane is
-active, which costs one host sync per trip.
+``while_loop`` under ``vmap``: each lane iterates until its differential
+checker fires, it starves of matches, or it reaches ``max_iterations``, and a
+finished lane stays frozen while the others go on. Here the lanes are a
+leading batch axis and the loop runs at most ``max_iterations`` trips; a lane
+takes a trip's update only while ``~done & (iters < max_iterations)``. The
+loop stops early once no lane is active, which costs one host sync per trip.
+
+A lane is either one start against a shared source and target
+(:func:`icp_multistart`, the multi-start search) or one registration of a
+pair of its own (:func:`icp_pairs`, the refinement fan-outs: every lane
+aligns a different source onto a different target). Lanes never interact,
+so a batch gives each lane the result it would get alone.
 """
 
 from __future__ import annotations
@@ -137,10 +142,18 @@ def _trim_threshold(d2, valid, ratio):
 
 def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
                cfg: ICPConfig, source_weights=None, target_weights=None):
+    """ICP over G lanes. Source and target are shared ([N, 2] / [M, 2]) or
+    per lane ([G, N, 2] / [G, M, 2]); masks and weights follow their cloud."""
     dtype = source_points.dtype
     dev = source_points.device
     G = guesses.shape[0]
-    M = target_points.shape[0]
+    M = target_points.shape[-2]
+    per_lane = target_points.ndim == 3
+    lanes = torch.arange(G, device=dev)[:, None]
+
+    def take(table, idx):  # table rows idx (G, N), shared or per lane
+        return table[lanes, idx] if per_lane else table[idx]
+
     if cfg.point_to_line:
         tgt_normals = estimate_normals(
             target_points, target_mask, cfg.normal_k, cfg.normal_radius)
@@ -176,15 +189,15 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
         enough = n_match >= cfg.min_matched_points
 
         safe_idx = torch.clamp(idx, 0, M - 1)
-        matched = target_points[safe_idx]
+        matched = take(target_points, safe_idx)
         ws = w
         if source_weights is not None:
             ws = ws * source_weights.to(dtype)
         if target_weights is not None:
-            ws = ws * target_weights.to(dtype)[safe_idx]
+            ws = ws * take(target_weights.to(dtype), safe_idx)
         if cfg.point_to_line:
             delta_l, n_con, info_l, mse_l = _weighted_p2l(
-                moved, matched, tgt_normals[safe_idx], ws)
+                moved, matched, take(tgt_normals, safe_idx), ws)
             delta_p = _weighted_procrustes(moved, matched, ws)
             info_p, mse_p = _p2p_info(moved, matched, ws)
             use_l = n_con >= 3
@@ -252,3 +265,14 @@ def icp_multistart(source_points, source_mask, target_points, target_mask,
     res = _icp_lanes(source_points, source_mask, target_points, target_mask,
                      guesses, config, source_weights, target_weights)
     return res._replace(ok=res.ok & guess_mask)
+
+
+def icp_pairs(source_points, source_mask, target_points, target_mask, guesses,
+              config: ICPConfig = ICPConfig(), source_weights=None,
+              target_weights=None) -> ICPResult:
+    """L independent registrations at once: lane l aligns source_points[l]
+    ([L, N, 2]) onto target_points[l] ([L, M, 2]) from guesses[l] ([L, 3]);
+    weights are [L, N] / [L, M]. Lane l's result equals
+    ``icp(source_points[l], ..., guesses[l])``."""
+    return _icp_lanes(source_points, source_mask, target_points, target_mask,
+                      guesses, config, source_weights, target_weights)

@@ -37,8 +37,8 @@ def top_k_stable(values: torch.Tensor, k: int):
 
 
 def _cell_ids(points, mask, spec: VoxelGridSpec):
-    ix = torch.floor((points[:, 0] - spec.x0) / spec.resolution).to(torch.int64)
-    iy = torch.floor((points[:, 1] - spec.y0) / spec.resolution).to(torch.int64)
+    ix = torch.floor((points[..., 0] - spec.x0) / spec.resolution).to(torch.int64)
+    iy = torch.floor((points[..., 1] - spec.y0) / spec.resolution).to(torch.int64)
     inside = (ix >= 0) & (ix < spec.nx) & (iy >= 0) & (iy < spec.ny)
     ok = mask & inside
     ids = torch.where(ok, iy * spec.nx + ix, torch.full_like(ix, spec.num_cells))
@@ -54,24 +54,32 @@ def _scatter_sum(n: int, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 def _binned(points, mask, spec: VoxelGridSpec, max_out: int, conf=None):
+    """Voxel centroids of (L, P, 2) clouds, one grid per lane: each lane's
+    cell ids are offset into a table of its own, so a lane's sums are the
+    ones it would get alone (added in the same order)."""
+    L = points.shape[0]
     ids, ok = _cell_ids(points, mask, spec)
-    w = ok.to(points.dtype)
     n = spec.num_cells + 1
-    sums = _scatter_sum(n, ids, points * w[:, None])
-    counts = _scatter_sum(n, ids, w)
-    csum = None
-    if conf is not None:
-        csum = _scatter_sum(n, ids, w * conf.to(points.dtype))[:-1]
-    counts, sums = counts[:-1], sums[:-1]
+    flat = (ids + n * torch.arange(L, device=ids.device)[:, None]).reshape(-1)
+    w = ok.to(points.dtype)
+
+    def per_cell(vals):  # (L, P, ...) -> (L, cells, ...) without the spare
+        sums = _scatter_sum(L * n, flat, vals.reshape((-1,) + vals.shape[2:]))
+        return sums.reshape((L, n) + vals.shape[2:])[:, :-1]
+
+    sums = per_cell(points * w[..., None])
+    counts = per_cell(w)
+    csum = None if conf is None else per_cell(w * conf.to(points.dtype))
     score, cell_idx = top_k_stable(counts, max_out)
     out_mask = score > 0
-    denom = torch.clamp(counts[cell_idx], min=1.0)
-    centroids = sums[cell_idx] / denom[:, None]
-    centroids = torch.where(out_mask[:, None], centroids,
+    lanes = torch.arange(L, device=ids.device)[:, None]
+    denom = torch.clamp(counts[lanes, cell_idx], min=1.0)
+    centroids = sums[lanes, cell_idx] / denom[..., None]
+    centroids = torch.where(out_mask[..., None], centroids,
                             torch.zeros_like(centroids))
     out_conf = None
     if csum is not None:
-        out_conf = torch.where(out_mask, csum[cell_idx] / denom,
+        out_conf = torch.where(out_mask, csum[lanes, cell_idx] / denom,
                                torch.zeros_like(denom))
     return centroids, out_mask, out_conf
 
@@ -79,12 +87,16 @@ def _binned(points, mask, spec: VoxelGridSpec, max_out: int, conf=None):
 def voxel_downsample(points, mask, spec: VoxelGridSpec, max_out: int):
     """(points [N, 2], mask [N]) -> centroids of occupied cells
     (out_points [max_out, 2], out_mask [max_out])."""
-    centroids, out_mask, _ = _binned(points, mask, spec, max_out)
-    return centroids, out_mask
+    centroids, out_mask, _ = _binned(points[None], mask[None], spec, max_out)
+    return centroids[0], out_mask[0]
 
 
 def voxel_downsample_with_conf(points, mask, conf, spec: VoxelGridSpec,
                                max_out: int):
     """Like :func:`voxel_downsample`, also carrying the mean per-point
-    confidence of each cell: (out_points, out_mask, out_conf)."""
+    confidence of each cell: (out_points, out_mask, out_conf). A leading lane
+    axis ([L, N, 2], [L, N], [L, N]) bins each lane on its own grid."""
+    if points.ndim == 2:
+        return tuple(o[0] for o in _binned(points[None], mask[None], spec,
+                                           max_out, conf[None]))
     return _binned(points, mask, spec, max_out, conf)

@@ -1,8 +1,8 @@
 """Conversion of the JAX package's configuration and state into the port's.
 
 The system has no weights: its state is its configuration (``SlamDims``,
-``SlamParams``, ``FeatureConfig``, ``ICPConfig``, ``DRConfig``) and, mid-run,
-a ``SlamCarry``. Each function here takes the JAX package's object with its
+``SlamParams``, ``RefineParams``, ``FeatureConfig``, ``ICPConfig``,
+``DRConfig``) and, mid-run, a ``SlamCarry``. Each function here takes the JAX package's object with its
 arrays already turned into numpy arrays (``np.asarray`` on every leaf) and
 its other values as plain Python values, and returns the port's equivalent.
 Nothing here imports JAX: the objects are read by field name.
@@ -20,6 +20,7 @@ from .estimators import DRConfig
 from .graph import GraphState
 from .slam.core import SlamCarry, SlamDims, SlamParams
 from .slam.frontend import FeatureConfig
+from .slam.refine import RefineParams
 
 _INT_COUNTERS = ("num_kf", "q_head", "num_loops")
 
@@ -47,18 +48,35 @@ def dr_config_from_reference(cfg) -> DRConfig:
 
 
 def dims_from_reference(dims) -> SlamDims:
-    """The port's ``SlamDims`` fields of ``dims``. Loop refinement is not
-    ported, so ``refine_iters > 0`` raises; with it off, the other
-    ``refine_*`` fields (and the TPU scan's ``scan_chunk``) change nothing
-    and are dropped."""
+    """The port's ``SlamDims`` fields of ``dims``: every field but the TPU
+    scan's ``scan_chunk``, which the port's scan has no use for."""
     src = _fields(dims)
-    if src.get("refine_iters", 0) > 0:
-        raise NotImplementedError(
-            "SlamDims.refine_iters > 0: loop refinement (slam/refine.py) is "
-            "not ported")
     f = {k.name: src[k.name] for k in dataclasses.fields(SlamDims)}
     f["icp"] = icp_config_from_reference(f["icp"])
+    f["refine_scale_anchor_sigma"] = tuple(f["refine_scale_anchor_sigma"])
     return SlamDims(**f)
+
+
+def _scalar(v):
+    """A numpy scalar as the Python value holding its exact value."""
+    v = np.asarray(v)
+    if v.dtype == np.bool_:
+        return bool(v)
+    if v.dtype.kind in "iu":
+        return int(v)
+    return float(np.float32(v))
+
+
+def refine_params_from_reference(rp, device) -> RefineParams:
+    """A JAX ``RefineParams`` (numpy leaves) -> the port's: scalars become
+    Python numbers and bools, vectors float32 tensors on ``device``."""
+    src = _fields(rp)
+    out = {}
+    for name in RefineParams._fields:
+        v = np.asarray(src[name])
+        out[name] = (torch.as_tensor(v.astype(np.float32), device=device)
+                     if v.ndim else _scalar(v))
+    return RefineParams(**out)
 
 
 def params_from_reference(params, device) -> SlamParams:

@@ -1,5 +1,5 @@
-"""CFAR detectors: the plain PyTorch versions (``cfar.py``), the CUDA kernel
-with its wrapper (``cfar_cuda.py``, counterpart of the JAX package's
+"""CFAR detectors: the plain PyTorch versions (``cfar.py``), the CUDA kernels
+with their wrapper (``cfar_cuda.py``, counterpart of the JAX package's
 ``cfar_pallas.py``) and the threshold-factor math (``cfar_factors.py``)."""
 
 from .cfar import (
@@ -13,7 +13,7 @@ from .cfar import (
     cfar_soca,
     cfar_soca2,
 )
-from .cfar_cuda import cfar_detect, cfar_plain
+from .cfar_cuda import cfar_detect, cfar_os_plain, cfar_plain
 from .cfar_factors import (
     threshold_factor_ca,
     threshold_factor_goca,

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .cfar_cuda import cfar_plain, valid_rows
+from .cfar_cuda import cfar_os_plain, cfar_plain
 from .cfar_factors import (
     threshold_factor_ca,
     threshold_factor_goca,
@@ -58,19 +58,7 @@ def cfar_os2(img, train_hs: int, guard_hs: int, k: int, tau: float,
              edge: str = "strict"):
     """Order-statistic CFAR: threshold from the k-th smallest training cell,
     by a sort over the stacked window (2 * train_hs cells)."""
-    img = _f32(img)
-    R = img.shape[-2]
-    valid = valid_rows(R, train_hs, guard_hs, edge, img.device)
-    rows = torch.arange(R, device=img.device)
-    hw = train_hs + guard_hs
-    offsets = [o for o in range(-hw, hw + 1) if abs(o) > guard_hs]
-    windows = torch.stack(
-        [img[..., torch.clamp(rows + o, 0, R - 1), :] for o in offsets], dim=-1)
-    kth = torch.sort(windows, dim=-1).values[..., k]
-    thr = tau * kth
-    valid = valid[:, None]
-    det = (img > thr) & valid
-    return det, torch.where(valid, thr, torch.zeros_like(thr))
+    return cfar_os_plain(_f32(img), train_hs, guard_hs, k, tau, None, edge)
 
 
 def cfar_ca(img, train_hs, guard_hs, tau, edge: str = "strict"):

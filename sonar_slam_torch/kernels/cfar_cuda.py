@@ -1,14 +1,19 @@
-"""The CFAR detector kernel (CUDA, sm_90a) and its plain PyTorch version.
+"""The CFAR detector kernels (CUDA, sm_90a) and their plain PyTorch versions.
 
-Counterpart of ``sonar_slam_tpu/kernels/cfar_pallas.py``: the hand-written
-kernel in ``csrc/cfar.cu`` replaces ``_cfar_kernel`` (CA / SOCA / GOCA with
-the intensity gate fused in). The OS kernel (``_cfar_os_kernel``) is not
-ported yet; asking for it on a CUDA tensor raises ``NotImplementedError``.
+Counterpart of ``sonar_slam_tpu/kernels/cfar_pallas.py``. The hand-written
+kernels in ``csrc/cfar.cu`` replace its two bodies, each with the intensity
+gate fused in:
 
-``cfar_detect`` is the one entry point. A tensor on the CPU goes through
-:func:`cfar_plain`, a tensor on a CUDA device launches the kernel, and any
-other device raises. Both versions add the training cells in the same order
-and divide the same way, so on the card they agree bit for bit.
+* ``cfar_sum_kernel`` replaces ``_cfar_kernel`` (CA / SOCA / GOCA); its plain
+  version is :func:`cfar_plain`. Both add the training cells in the same
+  order and divide the same way, so on the card they agree bit for bit.
+* ``cfar_os_kernel`` replaces ``_cfar_os_kernel`` (OS); its plain version is
+  :func:`cfar_os_plain`. Both select the exact k-th smallest training cell,
+  so they agree bit for bit too.
+
+``cfar_detect`` is the one entry point. A tensor on the CPU goes through the
+plain version, a tensor on a CUDA device launches the kernel, and any other
+device raises.
 
 The kernel is built at first use with ``nvcc`` from the sources in this
 package into ``sonar_slam_torch/_build/`` and loaded with ``ctypes``. If the
@@ -35,6 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lib = None
+# widest OS window the kernel takes (OS_MAX_CELLS in csrc/cfar.cu)
+OS_MAX_CELLS = 128
 
 
 def _nvcc() -> str:
@@ -81,6 +88,16 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R C
             ctypes.c_int, ctypes.c_int,  # train_hs guard_hs
             ctypes.c_float, ctypes.c_int,  # tau mode
+            ctypes.c_int, ctypes.c_float,  # use_gate gate
+            ctypes.c_int, ctypes.c_void_p,  # extend stream
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.cfar_os_launch
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img det thr
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R C
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # train_hs guard_hs rank
+            ctypes.c_float,  # tau
             ctypes.c_int, ctypes.c_float,  # use_gate gate
             ctypes.c_int, ctypes.c_void_p,  # extend stream
         ]
@@ -146,6 +163,36 @@ def cfar_plain(
     return det, torch.where(valid, thr, torch.zeros_like(thr))
 
 
+def cfar_os_plain(
+    imgs: torch.Tensor,
+    train_hs: int,
+    guard_hs: int,
+    rank: int,
+    tau: float,
+    intensity_threshold: float | None = None,
+    edge: str = "strict",
+):
+    """Plain PyTorch version of the OS kernel: (det bool, thr f32), each
+    shaped like ``imgs`` ([..., R, C]). The 2 * ``train_hs`` training cells
+    of every pixel are stacked (row indices clamped, which is the edge
+    replication) and sorted; the threshold is ``tau`` times the ``rank``-th
+    smallest (0-indexed)."""
+    R = imgs.shape[-2]
+    valid = valid_rows(R, train_hs, guard_hs, edge, imgs.device)
+    rows = torch.arange(R, device=imgs.device)
+    hw = train_hs + guard_hs
+    offsets = [o for o in range(-hw, hw + 1) if abs(o) > guard_hs]
+    windows = torch.stack(
+        [imgs[..., torch.clamp(rows + o, 0, R - 1), :] for o in offsets], dim=-1)
+    kth = torch.sort(windows, dim=-1).values[..., rank]
+    thr = tau * kth
+    valid = valid[:, None]
+    det = (imgs > thr) & valid
+    if intensity_threshold is not None:
+        det = det & (imgs > intensity_threshold)
+    return det, torch.where(valid, thr, torch.zeros_like(thr))
+
+
 def cfar_detect(
     imgs: torch.Tensor,
     train_hs: int,
@@ -155,11 +202,13 @@ def cfar_detect(
     intensity_threshold: float | None = None,
     edge: str = "strict",
     with_threshold: bool = False,
+    rank: int = 0,
 ):
-    """Batched fused CFAR over (B, R, C) float32 frames.
+    """Batched fused CFAR over (B, R, C) float32 frames; ``rank`` is OS's
+    0-indexed order statistic.
 
     Returns the (B, R, C) bool detection mask, and the threshold map too when
-    ``with_threshold``. CPU tensors take :func:`cfar_plain`; CUDA tensors
+    ``with_threshold``. CPU tensors take the plain version; CUDA tensors
     launch the kernel (counted in ``cfar_detect.launches``).
     """
     if imgs.ndim != 3:
@@ -170,18 +219,23 @@ def cfar_detect(
         raise ValueError("need train_hs >= 1 and guard_hs >= 0")
     if edge not in ("strict", "extend"):
         raise ValueError(f"unknown CFAR edge mode {edge!r}")
+    if mode != "OS" and mode not in _MODES:
+        raise ValueError(f"unknown CFAR mode {mode!r}")
+    if mode == "OS" and not 0 <= rank < 2 * train_hs:
+        raise ValueError(f"OS rank {rank} outside [0, {2 * train_hs})")
     if imgs.device.type == "cpu":
-        det, thr = cfar_plain(imgs, train_hs, guard_hs, tau, mode,
-                              intensity_threshold, edge)
+        if mode == "OS":
+            det, thr = cfar_os_plain(imgs, train_hs, guard_hs, rank, tau,
+                                     intensity_threshold, edge)
+        else:
+            det, thr = cfar_plain(imgs, train_hs, guard_hs, tau, mode,
+                                  intensity_threshold, edge)
         return (det, thr) if with_threshold else det
     if imgs.device.type != "cuda":
         raise RuntimeError(f"no CFAR kernel for device {imgs.device}")
-    if mode == "OS":
-        raise NotImplementedError(
-            "the OS-CFAR kernel (cfar_pallas.py::_cfar_os_kernel) is not "
-            "ported to CUDA yet")
-    if mode not in _MODES:
-        raise ValueError(f"unknown CFAR mode {mode!r}")
+    if mode == "OS" and 2 * train_hs > OS_MAX_CELLS:
+        raise ValueError(f"the OS kernel takes at most {OS_MAX_CELLS} "
+                         f"training cells, not {2 * train_hs}")
     if not imgs.is_contiguous():
         raise ValueError("CFAR kernel needs contiguous frames")
     B, R, C = imgs.shape
@@ -191,15 +245,19 @@ def cfar_detect(
     det = torch.empty(imgs.shape, dtype=torch.bool, device=imgs.device)
     thr = (torch.empty_like(imgs) if with_threshold else None)
     gate = intensity_threshold is not None
+    gate_v = float(intensity_threshold) if gate else 0.0
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = lib.cfar_sum_launch(
-            imgs.data_ptr(), det.data_ptr(),
-            thr.data_ptr() if thr is not None else None,
-            B, R, C, int(train_hs), int(guard_hs), float(tau), _MODES[mode],
-            int(gate), float(intensity_threshold) if gate else 0.0,
-            int(edge == "extend"), stream,
-        )
+        out = (imgs.data_ptr(), det.data_ptr(),
+               thr.data_ptr() if thr is not None else None, B, R, C,
+               int(train_hs), int(guard_hs))
+        if mode == "OS":
+            err = lib.cfar_os_launch(*out, int(rank), float(tau), int(gate),
+                                     gate_v, int(edge == "extend"), stream)
+        else:
+            err = lib.cfar_sum_launch(*out, float(tau), _MODES[mode],
+                                      int(gate), gate_v,
+                                      int(edge == "extend"), stream)
     if err != 0:
         raise RuntimeError(f"CFAR kernel launch failed: CUDA error {err}")
     cfar_detect.launches += 1

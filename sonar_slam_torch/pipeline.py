@@ -10,16 +10,19 @@ front end:
    corroboration gate of both neighbours of each (three batched CFAR
    launches on a CUDA device);
 4. ``slam_scan`` over the keyframes;
-5. the dense trajectory: every ping's DR delta composed onto its latest
+5. ``refine_loops`` when ``dims.refine_iters > 0``;
+6. the dense trajectory: every ping's DR delta composed onto its latest
    keyframe's optimized pose.
 
-Options that are not ported yet (the Kalman and gyro front ends, dual sonar)
-raise ``NotImplementedError`` naming the option; so does converting a
-configuration with loop refinement on (``convert.dims_from_reference``).
+``occupancy_map`` is bench.py's mapping stage on the result's carry, and
+``loop_metrics`` / ``ate_rmse`` / ``ate_heading_deg`` score a replay against
+the simulator's truth. Options that are not ported yet (the Kalman and gyro
+front ends, dual sonar) raise ``NotImplementedError`` naming the option.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import NamedTuple
 
@@ -30,9 +33,18 @@ from .estimators import DRConfig, dead_reckoning_scan, dead_reckoning_with_basis
 from .geometry import pose3_to_pose2, se2_between, se2_compose
 from .io.dataset import SensorStreams, build_dr_ticks, match_pings_to_ticks
 from .io.simulate import SyntheticBag
+from .mapping import (
+    MappingConfig,
+    SubmapModel,
+    build_submap_logodds,
+    mapping_init,
+    occupancy_grid_method1,
+    render_global_logodds,
+)
 from .precision import pin_fp32
 from .slam.core import KeyframeInput, SlamDims, SlamParams, select_keyframes, slam_scan
 from .slam.frontend import FeatureConfig, FeatureExtractor, corroborate
+from .slam.refine import RefineParams, refine_loops
 
 
 class ReplayResult(NamedTuple):
@@ -63,8 +75,10 @@ def replay(
     dr_config: DRConfig = DRConfig(roll_offset=0.0),
     frontend: str = "dr",
     use_vertical: bool = False,
+    refine_params: RefineParams | None = None,
 ) -> ReplayResult:
-    """Replay ``bag`` on ``device`` (a torch device or its name)."""
+    """Replay ``bag`` on ``device`` (a torch device or its name).
+    ``refine_params`` defaults to ``RefineParams.default``."""
     if frontend != "dr":
         raise NotImplementedError(
             f"replay(frontend={frontend!r}): only the 'dr' front end is ported")
@@ -82,7 +96,8 @@ def replay(
         dvl_vel=bag.dvl_vel, depth_time=bag.depth_time, depth=bag.depth)
     bundle = build_dr_ticks(streams, dev)
     tick_basis = None
-    if dims.aggregate_with_dr_basis:
+    if ((dims.refine_scale_basis and dims.estimate_dvl_scale)
+            or dims.aggregate_with_dr_basis):
         dr_poses3, tick_basis = dead_reckoning_with_basis_scan(bundle.ticks,
                                                                dr_config)
     else:
@@ -136,17 +151,25 @@ def replay(
                            points=pts, pmask=masks, valid=valid_t, conf=conf)
     kf_basis = tick_basis[tick_idx_t][sel_t] if tick_basis is not None else None
     carry, outputs = slam_scan(frames, params, dims, kf_basis)
-    nk = carry.num_kf
+    _sync(dev)
+    stage_s["slam_scan"] = time.perf_counter() - t0
 
-    # 5) full-rate pose at every ping
+    # 5) post-convergence loop refinement
+    if dims.refine_iters > 0:
+        t0 = time.perf_counter()
+        rp = refine_params if refine_params is not None else RefineParams.default(dev)
+        carry = refine_loops(carry, params, rp, dims, kf_basis)
+        _sync(dev)
+        stage_s["refine"] = time.perf_counter() - t0
+
+    # 6) full-rate pose at every ping
+    nk = carry.num_kf
     kf_of_ping = np.clip(
         np.searchsorted(kf_idx, np.arange(n_pings), side="right") - 1,
         0, max(nk - 1, 0))
     base = torch.as_tensor(kf_of_ping, device=dev)
     dense = se2_compose(carry.poses[base],
                         se2_between(carry.dr_poses[base], ping_dr2))
-    _sync(dev)
-    stage_s["slam_scan"] = time.perf_counter() - t0
 
     def host(x):
         return x.detach().cpu().numpy()
@@ -159,6 +182,59 @@ def replay(
         dr_poses_at_ticks=host(dr_poses3), dense_trajectory=host(dense),
         stage_s=stage_s,
     )
+
+
+def occupancy_map(carry, geometry, max_keyframes: int):
+    """bench.py's mapping stage on a replay's carry: every keyframe's submap
+    log-odds, the full repaint through the current poses and the method-1
+    int8 export. Returns (occupancy (H, W) int8 tensor, MappingConfig)."""
+    config = dataclasses.replace(MappingConfig(), max_keyframes=max_keyframes)
+    model = SubmapModel(config, geometry, carry.poses.device)
+    valid = torch.arange(max_keyframes, device=carry.poses.device) < carry.num_kf
+    state = mapping_init(config, model)._replace(
+        kf_logodds=build_submap_logodds(carry.points, carry.pmasks, model),
+        kf_poses=carry.poses, kf_valid=valid, num_kf=carry.num_kf)
+    state = state._replace(grid=render_global_logodds(state, model))
+    return occupancy_grid_method1(state, model), config
+
+
+def loop_metrics(carry, truth_kf: np.ndarray, min_st_sep: int,
+                 prox_radius: float, correct_tol: float = 0.30) -> dict:
+    """Loop-closure precision and recall against the simulator's truth
+    (bench.py's ``loop_metrics`` on the port's carry): a loop is correct when
+    its measured translation is within ``correct_tol`` of the true relative
+    pose; recall counts the source keyframes with a revisit opportunity (a
+    keyframe ``min_st_sep`` older within ``prox_radius``) that have a correct
+    loop."""
+    nk = carry.num_kf
+    nl = min(carry.num_loops, carry.loops_i.shape[0])
+    li = carry.loops_i[:nl].cpu().numpy()
+    lj = carry.loops_j[:nl].cpu().numpy()
+    ltf = carry.loops_tf[:nl].cpu().numpy()
+    truth32 = torch.as_tensor(np.asarray(truth_kf, np.float32))
+    errs = np.asarray([
+        float(np.linalg.norm(z[:2] - se2_between(truth32[a], truth32[b]).numpy()[:2]))
+        for a, b, z in zip(li, lj, ltf)])
+    correct = errs < correct_tol if nl else np.zeros(0, bool)
+
+    xy = truth_kf[:nk, :2]
+    d = np.linalg.norm(xy[:, None, :] - xy[None, :, :], axis=-1)
+    i_idx = np.arange(nk)
+    opp = ((i_idx[None, :] - i_idx[:, None]) >= min_st_sep) & (d < prox_radius)
+    opp_j = opp.any(axis=0)
+    det_j = np.zeros(nk, bool)
+    det_j[lj[(lj < nk) & correct]] = True
+    n_opp = int(opp_j.sum())
+    return {
+        "precision": round(float(correct.mean()), 3) if nl else None,
+        "recall": round(float((det_j & opp_j).sum() / max(n_opp, 1)), 3),
+        "opportunities": n_opp,
+        "loops": nl,
+        "loop_err_median_cm": round(float(np.median(errs)) * 100, 2)
+        if nl else None,
+        "loop_err_p90_cm": round(float(np.percentile(errs, 90)) * 100, 2)
+        if nl else None,
+    }
 
 
 def _umeyama_rotation(est: np.ndarray, truth: np.ndarray) -> np.ndarray:

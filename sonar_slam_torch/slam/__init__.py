@@ -1,4 +1,5 @@
-"""Sonar geometry, feature front end, scan matching and the SLAM core."""
+"""Sonar geometry, feature front end, scan matching, the SLAM core and loop
+refinement."""
 
 from .core import (
     KeyframeInput,
@@ -12,4 +13,5 @@ from .core import (
     slam_scan,
 )
 from .frontend import FeatureConfig, FeatureExtractor, corroborate, corroboration_gate
+from .refine import RefineParams, refine_loops
 from .sonar import SonarGeometry

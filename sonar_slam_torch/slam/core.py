@@ -84,10 +84,9 @@ STATUS_INITIALIZATION_FAILURE = 5
 @dataclass(frozen=True)
 class SlamDims:
     """Static capacities and structural options: the fields of the JAX
-    package's ``SlamDims`` that the keyframe scan reads, with the same
-    defaults (see there for what each one does). Loop refinement
-    (``refine_*``) is not ported; ``convert.dims_from_reference`` raises for
-    a configuration that turns it on."""
+    package's ``SlamDims``, with the same names and defaults (see there for
+    what each one does), except the TPU scan's ``scan_chunk``. The
+    ``refine_*`` fields configure ``slam/refine.py::refine_loops``."""
 
     max_keyframes: int = 128
     max_points: int = 256
@@ -116,6 +115,17 @@ class SlamDims:
     estimate_dvl_scale: bool = False
     dvl_scale_prior_sigma: float = 0.05
     dvl_scale_prior_sigma_y: float = 0.01
+    refine_iters: int = 0
+    refine_target_window: int = 2
+    refine_sweep_topk: int = 1
+    refine_sweep_budget: int = 0
+    refine_scale_from_chain: bool = False
+    refine_scale_anchor_sigma: tuple = (0.005, 0.01)
+    refine_scale_basis: bool = False
+    refine_incremental: bool = False
+    refine_sweep: bool = False
+    refine_chain: bool = False
+    refine_final_sweep: bool = False
     aggregation_extent: float = 2.0
     point_resolution: float = 0.5
 
@@ -318,34 +328,37 @@ def conf_weight(conf: torch.Tensor, params: SlamParams) -> torch.Tensor:
 
 def scaled_dr_between(carry: SlamCarry, ref_key, keys, s: torch.Tensor):
     """Relative DR poses ref -> keys with the exact per-axis DVL-scale
-    correction from the basis integrals (valid through turns)."""
-    d = carry.dr_basis[keys] - carry.dr_basis[ref_key]  # (W, 2, 2)
-    tw = s[0] * d[:, 0] + s[1] * d[:, 1]  # (W, 2)
+    correction from the basis integrals (valid through turns). ``ref_key``
+    and ``keys`` broadcast against each other."""
+    d = carry.dr_basis[keys] - carry.dr_basis[ref_key]  # (..., 2, 2)
+    tw = s[0] * d[..., 0, :] + s[1] * d[..., 1, :]  # (..., 2)
     th = carry.dr_poses[ref_key, 2]
     c, sn = torch.cos(th), torch.sin(th)
-    tb = torch.stack([c * tw[:, 0] + sn * tw[:, 1],
-                      -sn * tw[:, 0] + c * tw[:, 1]], dim=-1)
+    tb = torch.stack([c * tw[..., 0] + sn * tw[..., 1],
+                      -sn * tw[..., 0] + c * tw[..., 1]], dim=-1)
     dth = wrap_angle(carry.dr_poses[keys, 2] - th)
-    return torch.cat([tb, dth[:, None]], dim=-1)
+    return torch.cat([tb, dth[..., None]], dim=-1)
 
 
-def _aggregate_window(carry: SlamCarry, ref_pose, first_key: int, window: int,
-                      spec: VoxelGridSpec, capacity: int, ref_key: int,
-                      use_dr_relatives: bool = False, use_basis: bool = False):
+def _aggregate_windows(carry: SlamCarry, ref_pose, first_key, window: int,
+                       spec: VoxelGridSpec, capacity: int, ref_key,
+                       use_dr_relatives: bool = False, use_basis: bool = False):
     """Downsampled union of keyframes first_key .. first_key+window-1 in
-    ``ref_pose``'s frame (keys outside [0, num_kf) masked); with
-    ``use_dr_relatives`` the within-window relatives come from dead reckoning
-    corrected by the current DVL-scale estimate."""
+    ``ref_pose``'s frame (keys outside [0, num_kf) masked), for L windows at
+    once: ``ref_pose`` (L, 3), ``first_key`` and ``ref_key`` (L,) tensors.
+    With ``use_dr_relatives`` the within-window relatives come from dead
+    reckoning corrected by the current DVL-scale estimate. Lane l's result
+    equals the single window's (:func:`_aggregate_window`)."""
     dev = carry.points.device
     K = carry.points.shape[0]
-    keys = first_key + torch.arange(window, device=dev)
+    keys = first_key[:, None] + torch.arange(window, device=dev)  # (L, W)
     ok = (keys >= 0) & (keys < carry.num_kf)
     safe = torch.clamp(keys, 0, K - 1)
     pts = carry.points[safe]
-    masks = carry.pmasks[safe] & ok[:, None]
+    masks = carry.pmasks[safe] & ok[..., None]
     confs = carry.pconf[safe]
     if use_dr_relatives:
-        safe_ref = min(max(ref_key, 0), K - 1)
+        safe_ref = torch.clamp(ref_key, 0, K - 1)[:, None]
         s = torch.exp(carry.graph.log_scale)
         if use_basis:
             rel = scaled_dr_between(carry, safe_ref, safe, s)
@@ -353,10 +366,27 @@ def _aggregate_window(carry: SlamCarry, ref_pose, first_key: int, window: int,
             scale = torch.cat([s, torch.ones(1, device=dev)])
             rel = se2_between(carry.dr_poses[safe_ref], carry.dr_poses[safe]) * scale
     else:
-        rel = se2_between(ref_pose, carry.poses[safe])
-    moved = se2_transform_points(pts, rel)
-    return voxel_downsample_with_conf(moved.reshape(-1, 2), masks.reshape(-1),
-                                      confs.reshape(-1), spec, capacity)
+        rel = se2_between(ref_pose[:, None], carry.poses[safe])
+    moved = se2_transform_points(pts, rel)  # (L, W, N, 2)
+    L = moved.shape[0]
+    return voxel_downsample_with_conf(moved.reshape(L, -1, 2),
+                                      masks.reshape(L, -1),
+                                      confs.reshape(L, -1), spec, capacity)
+
+
+def _aggregate_window(carry: SlamCarry, ref_pose, first_key: int, window: int,
+                      spec: VoxelGridSpec, capacity: int, ref_key: int,
+                      use_dr_relatives: bool = False, use_basis: bool = False):
+    """One window of :func:`_aggregate_windows`: (points, mask, conf)."""
+    dev = carry.points.device
+
+    def lane(v):
+        return torch.as_tensor(v, device=dev).reshape(1)
+
+    out = _aggregate_windows(carry, ref_pose[None], lane(first_key), window,
+                             spec, capacity, lane(ref_key), use_dr_relatives,
+                             use_basis)
+    return tuple(o[0] for o in out)
 
 
 def _mean_censi(mres):

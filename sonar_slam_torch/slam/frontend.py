@@ -2,9 +2,10 @@
 
 Counterpart of ``sonar_slam_tpu/slam/frontend.py``:
 
-1. CFAR detection with the intensity gate ``img > threshold`` fused in. On a
-   CUDA device it runs the hand-written kernel (``kernels/cfar_cuda.py``), on
-   the CPU its plain PyTorch version;
+1. CFAR detection (CA, SOCA, GOCA or OS) with the intensity gate
+   ``img > threshold`` fused in. On a CUDA device it runs the hand-written
+   kernels (``kernels/cfar_cuda.py``), on the CPU their plain PyTorch
+   versions;
 2. voxel binning of the detected cells through a static (voxel, group) cell
    table built once on the host, with intensity-weighted, sub-bin refined
    centroids, densest voxels first;
@@ -26,7 +27,6 @@ import torch
 from ..cloud import remove_outlier, top_k_stable
 from ..cloud.knn import pairwise_sq_dists
 from ..geometry import se2_between, se2_transform_points
-from ..kernels.cfar import cfar_os2
 from ..kernels.cfar_cuda import cfar_detect
 from ..kernels.cfar_factors import (
     threshold_factor_ca,
@@ -157,10 +157,6 @@ class FeatureExtractor:
         }
         if config.alg not in taus:
             raise ValueError(f"unknown CFAR alg {config.alg}")
-        if config.alg == "OS" and self.device.type == "cuda":
-            raise NotImplementedError(
-                "FeatureConfig.alg='OS' needs the OS-CFAR kernel, which is "
-                "not ported to CUDA yet")
         self.tau = taus[config.alg]()
 
         cells_np = geometry.cell_points().reshape(-1, 2).astype(np.float32)
@@ -204,12 +200,9 @@ class FeatureExtractor:
         cfg = self.config
         imgs = imgs.to(torch.float32).contiguous()
         t, g = cfg.ntc // 2, cfg.ngc // 2
-        if cfg.alg == "OS":
-            det = cfar_os2(imgs, t, g, cfg.rank, self.tau, cfg.cfar_edge)[0]
-            return det & (imgs > cfg.threshold)
         return cfar_detect(imgs, t, g, self.tau, cfg.alg,
                            intensity_threshold=cfg.threshold,
-                           edge=cfg.cfar_edge)
+                           edge=cfg.cfar_edge, rank=cfg.rank)
 
     def subbin_xy(self, imgs: torch.Tensor) -> torch.Tensor:
         """Refined per-cell positions (B, R*C, 2) by log-parabolic peak

@@ -173,17 +173,18 @@ def estimate_pose_covariance(samples, sample_mask, support_fraction: float = 0.8
 
 
 def localize_covariance(cov: torch.Tensor, mean_pose: torch.Tensor) -> torch.Tensor:
-    """Unrotate a sample covariance into the local frame of the mean pose."""
-    R = se2_rotmat(mean_pose[2])
-    top = torch.matmul(R.T, cov[:2, :])
-    out = torch.cat([top, cov[2:, :]], dim=0)
-    left = torch.matmul(out[:, :2], R)
-    return torch.cat([left, out[:, 2:]], dim=1)
+    """Unrotate a sample covariance into the local frame of the mean pose
+    (batched over leading dims)."""
+    R = se2_rotmat(mean_pose[..., 2])
+    top = torch.matmul(R.transpose(-1, -2), cov[..., :2, :])
+    out = torch.cat([top, cov[..., 2:, :]], dim=-2)
+    left = torch.matmul(out[..., :, :2], R)
+    return torch.cat([left, out[..., :, 2:]], dim=-1)
 
 
 def apply_covariance_floor(cov: torch.Tensor, icp_odom_sigmas: torch.Tensor):
-    """If det(cov) < det(diag(sigmas)^2) use the fixed model. Returns
-    (cov, used_floor)."""
+    """If det(cov) < det(diag(sigmas)^2) use the fixed model (batched over
+    leading dims). Returns (cov, used_floor)."""
     default = torch.diag(icp_odom_sigmas ** 2)
     small = torch.linalg.det(cov) < torch.linalg.det(default)
-    return torch.where(small, default, cov), small
+    return torch.where(small[..., None, None], default, cov), small

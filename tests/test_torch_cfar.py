@@ -10,8 +10,14 @@
   bits: the mask must agree except at pixels within a relative 1e-5 of
   their threshold (float32 prefix sums over 40 cells of values up to ~1e3
   carry ~1e-6 relative error).
-* OS (a sort over the same window values) is exact against ``cfar_os2``.
-* The CUDA kernel against the plain version is in test_torch_cfar_cuda.py.
+* OS (a sort over the same window values) is exact against ``cfar_os2``,
+  and so is ``cfar_os_plain`` with the intensity gate fused in.
+* OS against the Pallas kernel's counting bisection (interpret mode): on
+  integer images the bisection is exact, so masks and thresholds are equal;
+  on float images its threshold is an upper bound within
+  ``tau * 256 * 2**-22`` of the exact one, and the masks agree outside that
+  margin.
+* The CUDA kernels against the plain versions are in test_torch_cfar_cuda.py.
 """
 
 from unittest import mock
@@ -23,7 +29,7 @@ import torch
 
 import sonar_slam_tpu.kernels.cfar as jcfar
 import sonar_slam_torch.kernels.cfar as tcfar
-from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_plain
+from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_os_plain, cfar_plain
 
 torch.set_num_threads(1)
 MARGIN = 1e-5
@@ -41,7 +47,7 @@ def _pings(seed, shape):
     return x
 
 
-def _pallas(imgs, t, g, tau, mode, gate, edge):
+def _pallas(imgs, t, g, tau, mode, gate, edge, rank=0):
     from jax.experimental import pallas as pl
 
     orig = pl.pallas_call
@@ -54,7 +60,8 @@ def _pallas(imgs, t, g, tau, mode, gate, edge):
         from sonar_slam_tpu.kernels.cfar_pallas import cfar_pallas_batch
 
         det, thr = cfar_pallas_batch(jnp.asarray(imgs), t, g, tau, mode,
-                                     intensity_threshold=gate, edge=edge)
+                                     intensity_threshold=gate, edge=edge,
+                                     rank=rank)
     return np.asarray(det), np.asarray(thr)
 
 
@@ -94,6 +101,58 @@ def test_os_matches_xla(edge):
     det, thr = tcfar.cfar_os2(torch.as_tensor(img), 10, 2, 7, 2.5, edge)
     np.testing.assert_array_equal(det.numpy(), jdet)
     np.testing.assert_array_equal(thr.numpy(), jthr)
+
+
+@pytest.mark.parametrize("rank", [0, 7, 19])
+@pytest.mark.parametrize("edge,gate", [("strict", None), ("extend", 65.0)])
+def test_os_plain_matches_xla(rank, edge, gate):
+    img = _pings(5, (72, 20))
+    jdet, jthr = (np.asarray(a) for a in jcfar.cfar_os2(jnp.asarray(img), 10, 2,
+                                                         rank, 2.5, edge))
+    if gate is not None:
+        jdet = jdet & (img > gate)
+    det, thr = cfar_os_plain(torch.as_tensor(img[None]), 10, 2, rank, 2.5,
+                             gate, edge)
+    np.testing.assert_array_equal(det[0].numpy(), jdet)
+    np.testing.assert_array_equal(thr[0].numpy(), jthr)
+    assert jdet.any()
+
+
+def _os_pings(seed, integer):
+    """Sonar intensities in [0, 255] (the Pallas bisection's range): decoded
+    uint8 levels, or the simulator's float values."""
+    x = np.clip(_pings(seed, (2, 80, 24)), 0.0, 255.0)
+    return np.floor(x) if integer else x
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("rank", [0, 10, 19])
+@pytest.mark.parametrize("edge,gate", [("strict", None), ("extend", 65.0)])
+def test_os_plain_against_pallas(integer, rank, edge, gate):
+    imgs = _os_pings(6, integer)
+    t, g, tau = 10, 3, 2.5
+    jdet, jthr = _pallas(imgs, t, g, tau, "OS", gate, edge, rank)
+    det, thr = (a.numpy() for a in cfar_os_plain(torch.as_tensor(imgs), t, g,
+                                                 rank, tau, gate, edge))
+    if integer:
+        np.testing.assert_array_equal(det, jdet)
+        np.testing.assert_array_equal(thr, jthr)
+    else:
+        margin = tau * 256 * 2.0**-22
+        assert (jthr >= thr).all() and (jthr - thr).max() <= margin
+        near = np.abs(imgs - thr) <= margin
+        np.testing.assert_array_equal(det[~near], jdet[~near])
+    assert det.any()
+
+
+def test_detect_os_on_cpu_is_the_plain_version():
+    imgs = torch.as_tensor(_pings(7, (3, 64, 16)))
+    det, thr = cfar_detect(imgs, 8, 2, 3.0, "OS", 65.0, "extend",
+                           with_threshold=True, rank=5)
+    pdet, pthr = cfar_os_plain(imgs, 8, 2, 5, 3.0, 65.0, "extend")
+    assert torch.equal(det, pdet) and torch.equal(thr, pthr)
+    with pytest.raises(ValueError):
+        cfar_detect(imgs, 8, 2, 3.0, "OS", rank=16)  # 16 training cells
 
 
 @pytest.mark.parametrize("alg", ["CA", "SOCA", "GOCA", "OS"])

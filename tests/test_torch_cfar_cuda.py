@@ -1,16 +1,18 @@
-"""The CUDA CFAR kernel against its plain PyTorch version, on a card.
+"""The CUDA CFAR kernels against their plain PyTorch versions, on a card.
 
 This file imports no JAX, so it runs on a machine that has a card and no JAX:
 ``python -m pytest tests/test_torch_cfar_cuda.py``. Without a card every test
-skips. Both versions add the training rows in the same order and divide the
-same way, so the mask and the threshold map must be bit-for-bit equal.
+skips. The sum kernel and its plain version add the training rows in the same
+order and divide the same way; the OS kernel and its plain version select the
+same exact order statistic. So the mask and the threshold map must be
+bit-for-bit equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_plain
+from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_os_plain, cfar_plain
 
 
 @pytest.fixture
@@ -49,9 +51,32 @@ def test_kernel_matches_plain_on_card(card, mode, edge):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("train_hs,rank", [(20, 0), (20, 10), (20, 39), (8, 5)])
+@pytest.mark.parametrize("edge", ["strict", "extend"])
+@pytest.mark.parametrize("integer", [False, True])
+def test_os_kernel_matches_plain_on_card(card, train_hs, rank, edge, integer):
+    """train_hs 20 takes the kernel's unrolled 40-cell instantiation, 8 the
+    generic one."""
+    imgs = torch.as_tensor(np.clip(_pings(7, (8, 512, 256)), 0, 255),
+                           device=card)
+    if integer:
+        imgs = torch.round(imgs)
+    before = cfar_detect.launches
+    det, thr = cfar_detect(imgs, train_hs, 5, 1.6, "OS", 65.0, edge,
+                           with_threshold=True, rank=rank)
+    pdet, pthr = cfar_os_plain(imgs, train_hs, 5, rank, 1.6, 65.0, edge)
+    torch.cuda.synchronize()
+    assert cfar_detect.launches == before + 1
+    assert det.dtype == torch.bool and det.shape == imgs.shape
+    assert torch.equal(det, pdet)
+    assert torch.equal(thr, pthr)
+    assert bool(det.any())
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(card):
     imgs = torch.as_tensor(_pings(6, (2, 64, 32)), device=card)
-    with pytest.raises(NotImplementedError):
-        cfar_detect(imgs, 8, 2, 2.0, "OS")
+    with pytest.raises(ValueError):
+        cfar_detect(imgs, 65, 2, 2.0, "OS")  # 130 training cells
     with pytest.raises(ValueError):
         cfar_detect(imgs.transpose(1, 2), 8, 2, 2.0)

@@ -18,6 +18,7 @@ import sonar_slam_tpu.io.simulate as jsim
 import sonar_slam_tpu.slam.frontend as jfe
 import sonar_slam_torch.slam.frontend as tfe
 import sonar_slam_torch.slam.sonar as tsonar
+from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_os_plain
 
 torch.set_num_threads(1)
 
@@ -34,6 +35,7 @@ def pings():
     dict(max_points=96),
     dict(max_points=64, cfar_edge="strict", alg="GOCA", min_voxel_hits=2),
     dict(max_points=64, alg="OS", subbin=False),
+    dict(max_points=96, alg="OS", rank=10),
 ])
 def test_extract_batch_conf(pings, cfg):
     imgs, geom = pings
@@ -90,8 +92,26 @@ def test_corroborate(both):
     assert 0 < t.sum() < masks.sum()
 
 
-def test_os_on_cuda_is_not_ported():
-    geom = tsonar.SonarGeometry.make(num_ranges=32, num_bearings=16)
-    with pytest.raises(NotImplementedError):
-        tfe.FeatureExtractor(tfe.FeatureConfig(alg="OS"), geom,
-                             torch.device("cuda"))
+def test_os_on_cuda_is_not_ported(pings, monkeypatch):
+    """OS now goes through ``cfar_detect`` like the sum variants (the entry
+    point that launches the OS kernel on a CUDA tensor), with the rank and
+    the fused gate, and the extractor no longer refuses it."""
+    imgs, geom = pings
+    tgeom = tsonar.SonarGeometry.make(num_ranges=geom.num_ranges,
+                                      num_bearings=geom.num_bearings,
+                                      max_range=geom.max_range)
+    cfg = tfe.FeatureConfig(alg="OS", rank=10, threshold=65)
+    tx = tfe.FeatureExtractor(cfg, tgeom, "cpu")
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append((args[4], kw["rank"], kw["intensity_threshold"]))
+        return cfar_detect(*args, **kw)
+
+    monkeypatch.setattr(tfe, "cfar_detect", spy)
+    x = torch.as_tensor(imgs)
+    det = tx.detections(x)
+    assert calls == [("OS", 10, 65)]
+    want, _ = cfar_os_plain(x, cfg.ntc // 2, cfg.ngc // 2, 10, tx.tau, 65,
+                            cfg.cfar_edge)
+    assert torch.equal(det, want) and bool(det.any())

@@ -29,7 +29,7 @@ added = set(sys.modules) - before
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu")
                for m in added), sorted(added)
 assert "jax" not in sys.modules or "jax" in before
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -38,4 +38,8 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", _SCRIPT.format(root=ROOT)], cwd=ROOT,
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+    names = proc.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 29
+    for new in ("slam.refine", "mapping", "mapping.occupancy",
+                "mapping.metrics"):
+        assert "sonar_slam_torch." + new in names, new

@@ -229,9 +229,13 @@ def test_unported_options_raise(bag):
                dict(use_vertical=True)):
         with pytest.raises(NotImplementedError):
             tpipe.replay(tbag, fc, params, dims, "cpu", **kw)
-    with pytest.raises(NotImplementedError, match="refine_iters"):
-        dims_from_reference(jcore.SlamDims(refine_iters=2))
-    # with refinement off, the refine_* options and the TPU scan's chunk size
-    # change nothing and are dropped
-    assert dims_from_reference(jcore.SlamDims(
-        refine_iters=0, refine_sweep=True, scan_chunk=4)) == dims
+    # loop refinement converts with every refine_* option; only the TPU
+    # scan's chunk size is dropped
+    assert dims_from_reference(jcore.SlamDims(scan_chunk=4)) == dims
+    on = dict(refine_iters=2, refine_sweep=True, refine_chain=True,
+              refine_final_sweep=True, refine_scale_from_chain=True,
+              refine_scale_basis=True, refine_incremental=True,
+              refine_sweep_topk=2, refine_sweep_budget=7,
+              refine_target_window=3, refine_scale_anchor_sigma=(0.01, 0.02))
+    assert dims_from_reference(jcore.SlamDims(scan_chunk=4, **on)) == (
+        dataclasses.replace(dims, **on))
