@@ -7,15 +7,21 @@ gate fused in:
 * ``cfar_sum_kernel`` replaces ``_cfar_kernel`` (CA / SOCA / GOCA); its plain
   version is :func:`cfar_plain`. Both add the training cells in the same
   order and divide the same way, so on the card they agree bit for bit.
-* ``cfar_os_kernel`` replaces ``_cfar_os_kernel`` (OS); its plain version is
-  :func:`cfar_os_plain`. Both select the exact k-th smallest training cell,
-  so they agree bit for bit too.
+* ``cfar_os_mask_kernel`` replaces ``_cfar_os_kernel`` where only the mask is
+  wanted and ``tau > 0`` (the feature path, see :func:`os_mask_path`): it
+  counts the training cells whose ``tau * v`` lies below the pixel, which
+  decides ``x > tau * kth`` exactly without selecting ``kth``.
+* ``cfar_os_kernel`` is OS with the threshold map (or any other ``tau``): it
+  selects the exact k-th smallest training cell.
+
+The plain version of both OS kernels is :func:`cfar_os_plain`, a sort; each
+kernel agrees with it bit for bit.
 
 ``cfar_detect`` is the one entry point. A tensor on the CPU goes through the
-plain version, a tensor on a CUDA device launches the kernel, and any other
+plain version, a tensor on a CUDA device launches a kernel, and any other
 device raises.
 
-The kernel is built at first use with ``nvcc`` from the sources in this
+The kernels are built at first use with ``nvcc`` from the sources in this
 package into ``sonar_slam_torch/_build/`` and loaded with ``ctypes``. If the
 build or a launch fails, ``cfar_detect`` raises.
 """
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -40,7 +47,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lib = None
-# widest OS window the kernel takes (OS_MAX_CELLS in csrc/cfar.cu)
+# widest OS window the kernels take (OS_MAX_CELLS in csrc/cfar.cu)
 OS_MAX_CELLS = 128
 
 
@@ -92,6 +99,16 @@ def _load():
             ctypes.c_int, ctypes.c_void_p,  # extend stream
         ]
         fn.restype = ctypes.c_int
+        fn = lib.cfar_os_mask_launch
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,  # img det
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B R C
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # train_hs guard_hs rank
+            ctypes.c_float,  # tau
+            ctypes.c_int, ctypes.c_float,  # use_gate gate
+            ctypes.c_int, ctypes.c_void_p,  # extend stream
+        ]
+        fn.restype = ctypes.c_int
         fn = lib.cfar_os_launch
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img det thr
@@ -102,6 +119,8 @@ def _load():
             ctypes.c_int, ctypes.c_void_p,  # extend stream
         ]
         fn.restype = ctypes.c_int
+        lib.cfar_max_half_window.argtypes = []
+        lib.cfar_max_half_window.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -193,6 +212,16 @@ def cfar_os_plain(
     return det, torch.where(valid, thr, torch.zeros_like(thr))
 
 
+def os_mask_path(tau: float, with_threshold: bool) -> bool:
+    """Whether an OS call on the card takes ``cfar_os_mask_kernel``: only the
+    mask is wanted and ``tau``, rounded to float32 as the kernel gets it, is
+    finite and positive. The kernel's rank count equals the selection only
+    for such ``tau`` (csrc/cfar.cu); every other call takes the selection
+    kernel."""
+    tau32 = ctypes.c_float(tau).value
+    return not with_threshold and 0.0 < tau32 < math.inf
+
+
 def cfar_detect(
     imgs: torch.Tensor,
     train_hs: int,
@@ -209,7 +238,9 @@ def cfar_detect(
 
     Returns the (B, R, C) bool detection mask, and the threshold map too when
     ``with_threshold``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (counted in ``cfar_detect.launches``).
+    launch a kernel. Each call on the card adds one to
+    ``cfar_detect.launches`` and to its kernel's entry in
+    ``cfar_detect.kernel_launches``.
     """
     if imgs.ndim != 3:
         raise ValueError(f"expected (B, R, C) frames, got {tuple(imgs.shape)}")
@@ -236,32 +267,46 @@ def cfar_detect(
     if mode == "OS" and 2 * train_hs > OS_MAX_CELLS:
         raise ValueError(f"the OS kernel takes at most {OS_MAX_CELLS} "
                          f"training cells, not {2 * train_hs}")
+    kernel = ("sum" if mode != "OS" else
+              "os_mask" if os_mask_path(tau, with_threshold) else "os_select")
     if not imgs.is_contiguous():
         raise ValueError("CFAR kernel needs contiguous frames")
     B, R, C = imgs.shape
     if B * R * C >= 2**31 * 256:
         raise ValueError("frame stack too large for one launch")
     lib = _load()
+    hw = train_hs + guard_hs
+    if kernel != "os_select" and hw > lib.cfar_max_half_window():
+        raise ValueError(f"train_hs + guard_hs = {hw} is too wide for the "
+                         f"kernel's tile in shared memory")
     det = torch.empty(imgs.shape, dtype=torch.bool, device=imgs.device)
     thr = (torch.empty_like(imgs) if with_threshold else None)
     gate = intensity_threshold is not None
     gate_v = float(intensity_threshold) if gate else 0.0
+    ext = int(edge == "extend")
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        out = (imgs.data_ptr(), det.data_ptr(),
-               thr.data_ptr() if thr is not None else None, B, R, C,
-               int(train_hs), int(guard_hs))
-        if mode == "OS":
-            err = lib.cfar_os_launch(*out, int(rank), float(tau), int(gate),
-                                     gate_v, int(edge == "extend"), stream)
+        if kernel == "os_mask":
+            err = lib.cfar_os_mask_launch(
+                imgs.data_ptr(), det.data_ptr(), B, R, C, int(train_hs),
+                int(guard_hs), int(rank), float(tau), int(gate), gate_v, ext,
+                stream)
         else:
-            err = lib.cfar_sum_launch(*out, float(tau), _MODES[mode],
-                                      int(gate), gate_v,
-                                      int(edge == "extend"), stream)
+            out = (imgs.data_ptr(), det.data_ptr(),
+                   thr.data_ptr() if thr is not None else None, B, R, C,
+                   int(train_hs), int(guard_hs))
+            if kernel == "os_select":
+                err = lib.cfar_os_launch(*out, int(rank), float(tau),
+                                         int(gate), gate_v, ext, stream)
+            else:
+                err = lib.cfar_sum_launch(*out, float(tau), _MODES[mode],
+                                          int(gate), gate_v, ext, stream)
     if err != 0:
         raise RuntimeError(f"CFAR kernel launch failed: CUDA error {err}")
     cfar_detect.launches += 1
+    cfar_detect.kernel_launches[kernel] += 1
     return (det, thr) if with_threshold else det
 
 
 cfar_detect.launches = 0
+cfar_detect.kernel_launches = {"sum": 0, "os_mask": 0, "os_select": 0}

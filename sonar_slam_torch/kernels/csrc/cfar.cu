@@ -1,93 +1,552 @@
 // CFAR detectors for Hopper (sm_90a): the sum-based variants (CA / SOCA /
 // GOCA) and the order-statistic variant (OS), each with the intensity gate
-// fused in.
+// fused in. Three kernels:
 //
-// cfar_sum_kernel replaces sonar_slam_tpu/kernels/cfar_pallas.py::_cfar_kernel.
-// For every pixel of a (B, R, C) float32 stack of polar sonar frames it forms the
-// leading and lagging sums of the train_hs training cells beyond guard_hs
-// along range (rows), takes their mean (CA), min (SOCA) or max (GOCA) over
-// train_hs, sets thr = tau * stat and writes
+//   cfar_sum_kernel      CA / SOCA / GOCA; replaces
+//                        sonar_slam_tpu/kernels/cfar_pallas.py::_cfar_kernel.
+//   cfar_os_mask_kernel  OS when only the mask is wanted and tau > 0 (the
+//                        feature path); replaces the mask of
+//                        cfar_pallas.py::_cfar_os_kernel.
+//   cfar_os_kernel       OS with the threshold map, or any other tau: the
+//                        exact selection of the k-th smallest cell.
+//
+// Every pixel of a (B, R, C) float32 stack of polar sonar frames has
+// 2 * train_hs training cells in its column: rows r - j (leading) and r + j
+// (lagging) for j = guard_hs + 1 ... guard_hs + train_hs. Row indices are
+// clamped to [0, R-1]: with edge == 1 ("extend") that clamp IS the edge
+// replication the Pallas wrapper builds as a padded copy, so no padded copy
+// exists here; with edge == 0 ("strict") rows within hw = train_hs + guard_hs
+// of either border are masked (det false, thr 0), as in
+// sonar_slam_tpu/kernels/cfar.py::_valid_rows. Each kernel writes
 //     det = (x > thr) & valid_row & (x > intensity_threshold)
-// straight into a torch.bool tensor, plus the threshold map when the caller
-// passes a pointer for it (the feature path does not).
+// straight into a torch.bool tensor, and the threshold map only when the
+// caller passes a pointer for it (the feature path does not).
 //
-// Design. One thread per output pixel, neighbouring threads on neighbouring
-// columns, so each of the 2 * train_hs training-row reads of a warp is one
-// coalesced 128-byte line. Row indices are clamped to [0, R-1]: with
-// edge == 1 ("extend") that clamp IS the edge replication the Pallas wrapper
-// builds as a padded copy, so no padded copy exists here; with edge == 0
-// ("strict") rows within train_hs + guard_hs of either border are masked
-// (det false, thr 0), as in sonar_slam_tpu/kernels/cfar.py::_valid_rows.
+// What bounds them. One read of the image and one write of the mask: at the
+// replay's shape (128, 512, 256) that is 67.1 MB in and 16.8 MB out, 25 us at
+// 3.35 TB/s. The arithmetic (40 adds or 40 compares a pixel, 0.67 G
+// operations) stays under that bound. Neither kernel does a matrix product,
+// so wgmma and the tensor cores do not apply; what Hopper offers here is
+// shared memory, 16-byte accesses and enough blocks in flight to hide the
+// loads.
 //
-// Arithmetic order matches the Pallas kernel and the plain PyTorch version in
-// cfar_cuda.py: the sums add j = guard+1 ... guard+train in order from 0, then
-// stat = min(lead, lag) / train_hs (IEEE division), then thr = tau * stat.
-// No product feeds an add, so no fused multiply-add can change a bit.
+// The tile (shared by the sum and the OS mask kernels). A block of 256
+// threads takes TILE_ROWS x TILE_COLS = 64 x 64 pixels of one frame: grid.x
+// is the column tile, grid.y the row tile, grid.z the frame, so no index is
+// divided. Shared memory holds the 64 + 2 * hw rows of the tile's 64 columns
+// (hw above, hw below), each row index clamped as above: 29 KB at the main
+// path's hw = 25. A block reloads its 2 * hw halo rows, which its neighbours
+// also load (1.8x the image from L2, once from device memory); a whole
+// 512-row column stripe with its halo (144 KB for 64 columns) would load
+// each row once but leave one block per SM. Each thread owns a strip of
+// STRIP = 4 consecutive rows of 4 adjacent columns: its image loads are
+// float4 (16 bytes) when C is a multiple of 4, its raw values stay in
+// registers, and its mask stores are one uchar4 a row. Four rows keep the
+// kernels at 64 registers or fewer, so four or five blocks (32 or 40 warps)
+// fit on an SM; with 8 rows the strip path's arrays took 95-165 registers,
+// and even a launch that skips all window arithmetic ran slower.
 //
-// Bound. Memory: one read of the image and one write of the mask (plus the
-// optional threshold map); the 40 neighbour reads of a column are served
-// from L1/L2. At the replay's shape (128, 512, 256) that is 67 MB in and
-// 17 MB out per call. A faster version would stage row tiles in shared
-// memory or keep a sliding sum; this one is the simple correct form.
+// The gate and the list. A pixel at or below the intensity gate (or in a
+// masked row) is never a detection, whatever its threshold, so on the
+// feature path (no threshold map) only the gated pixels need their window.
+// On the replay's pings that is 0.41% of them, mostly at the walls. Each
+// warp counts its gated pixels. Up to LIST_PER_WARP, it appends them to a
+// list in shared memory, and after a barrier the block's threads take the
+// list one pixel a thread, reading each pixel's cells from the tile: one
+// warp instruction serves up to 32 gated pixels of the block, where a warp
+// working on its own gated pixels kept one lane of 32 busy. A warp with more
+// gated pixels (a bright region, or no gate) takes the strip path instead:
+// each thread reads the training rows of its strip from shared memory once,
+// as float4, and uses each row for every pixel of the strip whose window
+// holds it. A warp vote alone, skipping warps with no gated pixel, saved
+// nothing measurable (a fifth of the warps skipped on the replay's pings):
+// a block keeps its place on the SM until its slowest warp ends.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void cfar_sum_kernel(const float* __restrict__ img,
-                                bool* __restrict__ det,
-                                float* __restrict__ thr_out,
-                                int R, int C, long long total,
-                                int train_hs, int guard_hs, float tau,
-                                int mode, int use_gate, float gate,
-                                int extend) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long plane = (long long)R * C;
-  const long long b = idx / plane;
-  const long long rem = idx - b * plane;
-  const int r = (int)(rem / C);
-  const int c = (int)(rem - (long long)r * C);
-  const float* col = img + b * plane + c;
+constexpr int TILE_ROWS = 64;
+constexpr int TILE_COLS = 64;
+constexpr int STRIP = 4;                       // rows a thread owns
+constexpr int SLOTS = 4 * STRIP;               // pixels a thread owns
+constexpr int GROUPS = TILE_COLS / 4;          // threadIdx.x: 4 columns each
+constexpr int STRIPS = TILE_ROWS / STRIP;      // threadIdx.y
+constexpr int TILE_THREADS = GROUPS * STRIPS;  // 256
+// gated pixels a warp may put on the block's list (of its 512); counting
+// instructions, the strip path costs about as much as listing 230 of them,
+// and 64 or 256 here timed the same on the replay's pings
+constexpr int LIST_PER_WARP = 128;
+constexpr int LIST_CAP = LIST_PER_WARP * TILE_THREADS / 32;
+constexpr int MAX_FRAMES = 65535;  // grid.z limit
+// shared memory a block may use on Hopper (227 KB), and the list's share
+constexpr int MAX_BLOCK_BYTES = 232448;
+constexpr int LIST_BYTES = LIST_CAP * 8 + 16;
+constexpr int OS_MAX_CELLS = 128;
 
-  const float x = col[(long long)r * C];
-  float lead = 0.0f;
-  float lag = 0.0f;
-  for (int j = guard_hs + 1; j <= guard_hs + train_hs; ++j) {
-    int rl = r - j;
-    rl = rl < 0 ? 0 : rl;
-    int rg = r + j;
-    rg = rg > R - 1 ? R - 1 : rg;
-    lead = lead + col[(long long)rl * C];
-    lag = lag + col[(long long)rg * C];
+struct Identity {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+
+struct Scale {
+  float tau;
+  __device__ __forceinline__ float operator()(float v) const {
+    return __fmul_rn(tau, v);
   }
+};
 
+__device__ __forceinline__ int clamp_row(int r, int R) {
+  return r < 0 ? 0 : (r > R - 1 ? R - 1 : r);
+}
+
+// Four columns c ... c+3 of one image row, zero beyond C. VEC: C % 4 == 0
+// and the row is 16-byte aligned, so the group is wholly in or out.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int c,
+                                        int C) {
+  if (VEC) {
+    return c < C ? __ldg(reinterpret_cast<const float4*>(row + c))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return make_float4(c < C ? row[c] : 0.0f, c + 1 < C ? row[c + 1] : 0.0f,
+                     c + 2 < C ? row[c + 2] : 0.0f,
+                     c + 3 < C ? row[c + 3] : 0.0f);
+}
+
+template <class Op>
+__device__ __forceinline__ void put4(float* tile, int row, float4 v, Op op) {
+  *reinterpret_cast<float4*>(tile + row * TILE_COLS + 4 * threadIdx.x) =
+      make_float4(op(v.x), op(v.y), op(v.z), op(v.w));
+}
+
+// Fills the block's tile: shared row i holds op(image row
+// clamp(R0 - hw + i)) for i in [0, TILE_ROWS + 2 * hw), R0 the tile's first
+// row. Each thread loads its own strip (rows r0 ... r0 + STRIP - 1, columns
+// c ... c + 3), keeping the raw values in x, and a share of the halo rows.
+// The caller synchronises.
+template <bool VEC, class Op>
+__device__ __forceinline__ void load_tile(const float* __restrict__ frame,
+                                          float* tile, int R, int C, int hw,
+                                          int r0, int c, float (&x)[STRIP][4],
+                                          Op op) {
+  const int R0 = blockIdx.y * TILE_ROWS;
+#pragma unroll
+  for (int s = 0; s < STRIP; ++s) {
+    const int r = r0 + s;
+    const float4 v =
+        load4<VEC>(frame + (long long)clamp_row(r, R) * C, c, C);
+    x[s][0] = v.x;
+    x[s][1] = v.y;
+    x[s][2] = v.z;
+    x[s][3] = v.w;
+    put4(tile, r - R0 + hw, v, op);
+  }
+  for (int i = threadIdx.y; i < 2 * hw; i += STRIPS) {
+    const int ti = i < hw ? i : i + TILE_ROWS;
+    const int r = clamp_row(R0 - hw + ti, R);
+    put4(tile, ti, load4<VEC>(frame + (long long)r * C, c, C), op);
+  }
+}
+
+// Bit 4s+k: the pixel at row r0+s, column c+k lies in the frame, in a row
+// that may detect, and passes the intensity gate. A pixel without its bit is
+// never a detection.
+__device__ __forceinline__ unsigned need_bits(const float (&x)[STRIP][4],
+                                              int r0, int c, int R, int C,
+                                              int hw, int extend, int use_gate,
+                                              float gate) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int s = 0; s < STRIP; ++s) {
+    const int r = r0 + s;
+    const bool row_ok = r < R && (extend || (r >= hw && r < R - hw));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (row_ok && c + k < C && (!use_gate || x[s][k] > gate))
+        bits |= 1u << (4 * s + k);
+    }
+  }
+  return bits;
+}
+
+// Appends the thread's gated pixels to the block's list: each one's offset
+// in the tile to pos and, if xs is not null, its raw value to xs. Returns
+// the index of the thread's first entry.
+__device__ __forceinline__ int list_push(unsigned need, int base,
+                                         const float (&x)[STRIP][4], int* pos,
+                                         float* xs, int* n) {
+  int e = need ? atomicAdd(n, __popc(need)) : 0;
+  const int first = e;
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    if ((need >> i) & 1u) {
+      pos[e] = base + (i >> 2) * TILE_COLS + (i & 3);
+      if (xs != nullptr) xs[e] = x[i >> 2][i & 3];
+      ++e;
+    }
+  }
+  return first;
+}
+
+// The thread's detections, which the block left in pos (1 or 0) in the
+// order list_push wrote its entries.
+__device__ __forceinline__ unsigned list_pull(unsigned need, int e,
+                                              const int* pos) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    if ((need >> i) & 1u) {
+      if (pos[e]) bits |= 1u << i;
+      ++e;
+    }
+  }
+  return bits;
+}
+
+// Mask bit 4s+k to (row r0+s, column c+k), as one uchar4 a row when VEC.
+template <bool VEC>
+__device__ __forceinline__ void store_mask(bool* __restrict__ det,
+                                           unsigned bits, int r0, int c,
+                                           int R, int C) {
+#pragma unroll
+  for (int s = 0; s < STRIP; ++s) {
+    const int r = r0 + s;
+    if (r >= R) break;
+    bool* row = det + (long long)r * C;
+    const unsigned b = bits >> (4 * s);
+    if (VEC) {
+      if (c < C)
+        *reinterpret_cast<uchar4*>(row + c) =
+            make_uchar4(b & 1u, (b >> 1) & 1u, (b >> 2) & 1u, (b >> 3) & 1u);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k < C) row[c + k] = (b >> k) & 1u;
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_thr(float* __restrict__ thr,
+                                          const float (&t)[STRIP][4], int r0,
+                                          int c, int R, int C) {
+#pragma unroll
+  for (int s = 0; s < STRIP; ++s) {
+    const int r = r0 + s;
+    if (r >= R) break;
+    float* row = thr + (long long)r * C;
+    if (VEC) {
+      if (c < C)
+        *reinterpret_cast<float4*>(row + c) =
+            make_float4(t[s][0], t[s][1], t[s][2], t[s][3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k < C) row[c + k] = t[s][k];
+    }
+  }
+}
+
+// torch.minimum / torch.maximum: a NaN operand gives NaN
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The threshold from a pixel's sums: the plain version's min / max / mean,
+// IEEE division by train_hs (2 * train_hs for CA), then times tau.
+__device__ __forceinline__ float sum_threshold(float lead, float lag, int mode,
+                                               int th, float tau) {
   float stat;
   if (mode == 0) {
-    stat = __fdiv_rn(lead + lag, (float)(2 * train_hs));
+    stat = __fdiv_rn(lead + lag, (float)(2 * th));
   } else if (mode == 1) {
-    stat = __fdiv_rn(fminf(lead, lag), (float)train_hs);
+    stat = __fdiv_rn(min_nan(lead, lag), (float)th);
   } else {
-    stat = __fdiv_rn(fmaxf(lead, lag), (float)train_hs);
+    stat = __fdiv_rn(max_nan(lead, lag), (float)th);
   }
-  const float thr = __fmul_rn(tau, stat);
-
-  const int hw = train_hs + guard_hs;
-  const bool valid = extend ? true : (r >= hw && r < R - hw);
-  bool d = valid && (x > thr);
-  if (use_gate) d = d && (x > gate);
-  det[idx] = d;
-  if (thr_out != nullptr) thr_out[idx] = valid ? thr : 0.0f;
+  return __fmul_rn(tau, stat);
 }
 
 // ---------------------------------------------------------------------------
-// OS-CFAR: replaces sonar_slam_tpu/kernels/cfar_pallas.py::_cfar_os_kernel.
+// cfar_sum_kernel: for each pixel the leading and lagging sums of its
+// train_hs training cells, their mean (CA), min (SOCA) or max (GOCA) over
+// train_hs, thr = tau * stat.
+//
+// Arithmetic order matches the Pallas kernel and the plain PyTorch version in
+// cfar_cuda.py exactly: each sum starts at 0.0f and adds j = guard+1 ...
+// guard+train in order, then stat = min(lead, lag) / train_hs (IEEE
+// division), then thr = tau * stat. No product feeds an add, so no fused
+// multiply-add can change a bit. A sliding sum (add one row, subtract
+// another) would round differently, so every pixel's 20 cells are added in
+// full: one by one for a listed pixel, and on the strip path by walking the
+// shared rows downwards for the leading sums and upwards for the lagging
+// ones, so that every pixel meets its cells in the order j = guard+1,
+// guard+2, ...
+//
+// T > 0 fixes train_hs = T and guard_hs = G at compile time (the main path's
+// 20 and 5): the loops unroll and which pixel takes which row is decided by
+// the compiler. T = 0 is the generic window, with the same code under
+// runtime bounds.
+
+// Leading and lagging training sums of the pixel at q in the tile, each from
+// 0.0f, nearest cell first.
+template <int T>
+__device__ __forceinline__ void pixel_sums(const float* q, int g, int hw,
+                                           float& lead, float& lag) {
+  lead = 0.0f;
+  lag = 0.0f;
+#pragma unroll(T > 0 ? T : 1)
+  for (int j = g + 1; j <= hw; ++j) {
+    lead = lead + q[-j * TILE_COLS];
+    lag = lag + q[j * TILE_COLS];
+  }
+}
+
+// The sums of the thread's strip; p is its first pixel in the tile.
+template <int T>
+__device__ __forceinline__ void strip_sums(const float* p, int g, int hw,
+                                           float (&lead)[STRIP][4],
+                                           float (&lag)[STRIP][4]) {
+#pragma unroll
+  for (int s = 0; s < STRIP; ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      lead[s][k] = 0.0f;
+      lag[s][k] = 0.0f;
+    }
+  }
+  // leading cells, nearest first: row o of the strip is cell j = s - o of
+  // pixel s
+#pragma unroll(T > 0 ? STRIP - 1 + T : 1)
+  for (int o = STRIP - 2 - g; o >= -hw; --o) {
+    const float4 w = *reinterpret_cast<const float4*>(p + o * TILE_COLS);
+#pragma unroll
+    for (int s = 0; s < STRIP; ++s) {
+      const int j = s - o;
+      if (j > g && j <= hw) {
+        lead[s][0] = lead[s][0] + w.x;
+        lead[s][1] = lead[s][1] + w.y;
+        lead[s][2] = lead[s][2] + w.z;
+        lead[s][3] = lead[s][3] + w.w;
+      }
+    }
+  }
+  // lagging cells, nearest first: row o is cell j = o - s of pixel s
+#pragma unroll(T > 0 ? STRIP - 1 + T : 1)
+  for (int o = g + 1; o < STRIP + hw; ++o) {
+    const float4 w = *reinterpret_cast<const float4*>(p + o * TILE_COLS);
+#pragma unroll
+    for (int s = 0; s < STRIP; ++s) {
+      const int j = o - s;
+      if (j > g && j <= hw) {
+        lag[s][0] = lag[s][0] + w.x;
+        lag[s][1] = lag[s][1] + w.y;
+        lag[s][2] = lag[s][2] + w.z;
+        lag[s][3] = lag[s][3] + w.w;
+      }
+    }
+  }
+}
+
+template <int T, int G, bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS)
+    cfar_sum_kernel(const float* __restrict__ img, bool* __restrict__ det,
+                    float* __restrict__ thr_out, int R, int C, int train_hs,
+                    int guard_hs, float tau, int mode, int use_gate,
+                    float gate, int extend) {
+  extern __shared__ float4 smem[];
+  __shared__ int list_pos[LIST_CAP];
+  __shared__ int list_n;
+  float* tile = reinterpret_cast<float*>(smem);
+  const int th = T > 0 ? T : train_hs;
+  const int g = T > 0 ? G : guard_hs;
+  const int hw = th + g;
+  const long long plane = (long long)R * C;
+  const int r0 = blockIdx.y * TILE_ROWS + threadIdx.y * STRIP;
+  const int c = blockIdx.x * TILE_COLS + 4 * threadIdx.x;
+  // the thread's first pixel in the tile
+  const int base = (threadIdx.y * STRIP + hw) * TILE_COLS + 4 * threadIdx.x;
+
+  if (threadIdx.x == 0 && threadIdx.y == 0) list_n = 0;
+  float x[STRIP][4];
+  load_tile<VEC>(img + blockIdx.z * plane, tile, R, C, hw, r0, c, x,
+                 Identity());
+  __syncthreads();
+  const unsigned need = need_bits(x, r0, c, R, C, hw, extend, use_gate, gate);
+  // the threshold map needs every pixel's sums
+  const bool strip_path =
+      thr_out != nullptr ||
+      __reduce_add_sync(0xffffffffu, __popc(need)) > LIST_PER_WARP;
+
+  unsigned bits = 0;
+  int first = 0;
+  if (strip_path) {
+    float lead[STRIP][4];
+    float lag[STRIP][4];
+    strip_sums<T>(tile + base, g, hw, lead, lag);
+    // lead becomes the threshold map
+#pragma unroll
+    for (int s = 0; s < STRIP; ++s) {
+      const int r = r0 + s;
+      const bool valid = extend || (r >= hw && r < R - hw);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float t = sum_threshold(lead[s][k], lag[s][k], mode, th, tau);
+        if (((need >> (4 * s + k)) & 1u) && x[s][k] > t)
+          bits |= 1u << (4 * s + k);
+        lead[s][k] = valid ? t : 0.0f;
+      }
+    }
+    if (thr_out != nullptr)
+      store_thr<VEC>(thr_out + blockIdx.z * plane, lead, r0, c, R, C);
+  } else {
+    first = list_push(need, base, x, list_pos, nullptr, &list_n);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x + GROUPS * threadIdx.y; e < list_n;
+       e += TILE_THREADS) {
+    const float* q = tile + list_pos[e];
+    float lead, lag;
+    pixel_sums<T>(q, g, hw, lead, lag);
+    list_pos[e] = q[0] > sum_threshold(lead, lag, mode, th, tau);
+  }
+  __syncthreads();
+  if (!strip_path) bits = list_pull(need, first, list_pos);
+  store_mask<VEC>(det + blockIdx.z * plane, bits, r0, c, R, C);
+}
+
+// ---------------------------------------------------------------------------
+// cfar_os_mask_kernel: the OS mask without selecting the k-th smallest cell.
+//
+// The mask needs only det = (x > fl(tau * kth)) & valid & gate, where kth is
+// the rank-th smallest (0-indexed) of the pixel's cells v_i and fl() rounds
+// to float32. For finite tau > 0, v -> fl(tau * v) is monotone
+// non-decreasing on the extended reals (rounding, underflow to 0 and
+// overflow to inf all keep the order, and -inf stays -inf), so fl(tau * kth)
+// is the rank-th smallest of the w_i = fl(tau * v_i), and
+//     x > fl(tau * kth)   <=>   #{i : w_i < x} >= rank + 1
+// (a sorted list has at least rank + 1 entries below x exactly when its
+// rank-th entry is below x). NaN cells sort last in the plain version's sort
+// and never compare below x here; if rank reaches them, kth is NaN and the
+// count stays at most rank, so both sides are false; a NaN pixel is false on
+// both sides. The identity needs tau > 0: with tau == 0, fl(0 * -inf) is NaN,
+// which breaks the order (a window whose rank-th cell is -inf has threshold
+// NaN, so no detection, while the finite cells would still count below x).
+// cfar_cuda.py routes any other tau, and every call that wants the threshold
+// map, to cfar_os_kernel below.
+//
+// So the kernel counts: 40 compares a pixel at the main path's window and no
+// selection. It is the Pallas kernel's own idea, counting cells against a
+// level (cfar_pallas.py::_cfar_os_kernel's window_count_leq), applied once at
+// x instead of at 22 bisection midpoints, and exact on float pings. The tile
+// holds w = fl(tau * v), computed once per cell as it is loaded (each cell
+// serves the 40 pixels of its column); the pixels' raw values stay in
+// registers, or go on the list beside their offsets, since x is compared
+// raw.
+
+// How many training cells of the pixel at q in the tile lie below x.
+template <int T>
+__device__ __forceinline__ int pixel_count(const float* q, float x, int g,
+                                           int hw) {
+  int n = 0;
+#pragma unroll(T > 0 ? T : 1)
+  for (int j = g + 1; j <= hw; ++j)
+    n += (q[-j * TILE_COLS] < x) + (q[j * TILE_COLS] < x);
+  return n;
+}
+
+// The detections of the thread's strip by counting; p is its first pixel in
+// the tile. Row o of the strip is a training cell of pixel s when
+// guard < |o - s| <= hw.
+template <int T, int G>
+__device__ __forceinline__ unsigned strip_counts(const float* p,
+                                                 const float (&x)[STRIP][4],
+                                                 unsigned need, int g, int hw,
+                                                 int rank) {
+  int cnt[STRIP][4];
+#pragma unroll
+  for (int s = 0; s < STRIP; ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cnt[s][k] = 0;
+  }
+#pragma unroll(T > 0 ? 2 * (T + G) + STRIP : 1)
+  for (int o = -hw; o < STRIP + hw; ++o) {
+    const float4 w = *reinterpret_cast<const float4*>(p + o * TILE_COLS);
+#pragma unroll
+    for (int s = 0; s < STRIP; ++s) {
+      const int d = o - s < 0 ? s - o : o - s;
+      if (d > g && d <= hw) {
+        cnt[s][0] += w.x < x[s][0];
+        cnt[s][1] += w.y < x[s][1];
+        cnt[s][2] += w.z < x[s][2];
+        cnt[s][3] += w.w < x[s][3];
+      }
+    }
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    if (((need >> i) & 1u) && cnt[i >> 2][i & 3] > rank) bits |= 1u << i;
+  }
+  return bits;
+}
+
+// Five blocks an SM: ptxas then gives it 48 registers and a 16-byte spill
+// instead of 59, and the main path's call ran faster on the H100; the same
+// bound on cfar_sum_kernel spilled 96 bytes and made it slower.
+template <int T, int G, bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS, 5)
+    cfar_os_mask_kernel(const float* __restrict__ img, bool* __restrict__ det,
+                        int R, int C, int train_hs, int guard_hs, int rank,
+                        float tau, int use_gate, float gate, int extend) {
+  extern __shared__ float4 smem[];
+  __shared__ int list_pos[LIST_CAP];
+  __shared__ float list_x[LIST_CAP];
+  __shared__ int list_n;
+  float* tile = reinterpret_cast<float*>(smem);
+  const int th = T > 0 ? T : train_hs;
+  const int g = T > 0 ? G : guard_hs;
+  const int hw = th + g;
+  const long long plane = (long long)R * C;
+  const int r0 = blockIdx.y * TILE_ROWS + threadIdx.y * STRIP;
+  const int c = blockIdx.x * TILE_COLS + 4 * threadIdx.x;
+  const int base = (threadIdx.y * STRIP + hw) * TILE_COLS + 4 * threadIdx.x;
+
+  if (threadIdx.x == 0 && threadIdx.y == 0) list_n = 0;
+  float x[STRIP][4];
+  load_tile<VEC>(img + blockIdx.z * plane, tile, R, C, hw, r0, c, x,
+                 Scale{tau});
+  __syncthreads();
+  const unsigned need = need_bits(x, r0, c, R, C, hw, extend, use_gate, gate);
+  const bool strip_path =
+      __reduce_add_sync(0xffffffffu, __popc(need)) > LIST_PER_WARP;
+
+  unsigned bits = 0;
+  int first = 0;
+  if (strip_path)
+    bits = strip_counts<T, G>(tile + base, x, need, g, hw, rank);
+  else
+    first = list_push(need, base, x, list_pos, list_x, &list_n);
+  __syncthreads();
+  for (int e = threadIdx.x + GROUPS * threadIdx.y; e < list_n;
+       e += TILE_THREADS)
+    list_pos[e] = pixel_count<T>(tile + list_pos[e], list_x[e], g, hw) > rank;
+  __syncthreads();
+  if (!strip_path) bits = list_pull(need, first, list_pos);
+  store_mask<VEC>(det + blockIdx.z * plane, bits, r0, c, R, C);
+}
+
+// ---------------------------------------------------------------------------
+// cfar_os_kernel: replaces sonar_slam_tpu/kernels/cfar_pallas.py::
+// _cfar_os_kernel where the threshold map is wanted (or tau <= 0).
 //
 // For every pixel, kth = the k-th smallest (0-indexed) of its 2 * train_hs
-// training cells (rows guard_hs < |i - r| <= guard_hs + train_hs, clamped to
-// [0, R-1] as in the sum kernel), thr = tau * kth, and
-//     det = (x > thr) & valid_row & (x > intensity_threshold).
+// training cells, thr = tau * kth, and det as above.
 //
 // Selection. The Pallas kernel brackets kth by a counting bisection over
 // [-1, 255] (8 integer steps, then os_float_refine_steps continuous ones): an
@@ -97,7 +556,8 @@ __global__ void cfar_sum_kernel(const float* __restrict__ img,
 // it equals the sorted window's k-th entry bit for bit (what the XLA path,
 // the reference's nth_element and the plain PyTorch version compute) and the
 // Pallas kernel's os_float_refine_steps has no counterpart here. Ties select
-// the same value whichever tied cell is found.
+// the same value whichever tied cell is found. NaN cells are never selected;
+// when k reaches them kth stays NaN, as the sort puts NaN last.
 //
 // Design. One thread per pixel, neighbouring threads on neighbouring
 // columns, so each of the 2 * train_hs loads of a warp is one coalesced
@@ -105,12 +565,9 @@ __global__ void cfar_sum_kernel(const float* __restrict__ img,
 // train_hs = 20 (40 cells): the cells and the 40 x 40 comparisons unroll
 // into registers. Any other window up to OS_MAX_CELLS cells takes the
 // generic instantiation (NW = 0), whose runtime-sized array lives in local
-// memory; that path is correct and slower, and nothing on the replay path
-// uses it. Bound: compute, 2 * train_hs * 2 * train_hs compares per pixel
+// memory. Bound: compute, 2 * train_hs * 2 * train_hs compares per pixel
 // (1600 at the main path's window), against one image read and one mask
-// write.
-
-constexpr int OS_MAX_CELLS = 128;
+// write. It is not on the feature path, which takes cfar_os_mask_kernel.
 
 template <int NW>
 __global__ void cfar_os_kernel(const float* __restrict__ img,
@@ -143,7 +600,7 @@ __global__ void cfar_os_kernel(const float* __restrict__ img,
     v[2 * j + 1] = col[(long long)rg * C];
   }
 
-  float kth = 0.0f;
+  float kth = __int_as_float(0x7fc00000);  // NaN
 #pragma unroll(NW > 0 ? NW : 1)
   for (int i = 0; i < n; ++i) {
     int less = 0;
@@ -166,29 +623,95 @@ __global__ void cfar_os_kernel(const float* __restrict__ img,
   if (thr_out != nullptr) thr_out[idx] = valid ? thr : 0.0f;
 }
 
+// Dynamic shared bytes of a tile for half-window hw (the lists are static).
+long long tile_bytes(int hw) {
+  return (long long)(TILE_ROWS + 2 * hw) * TILE_COLS * 4;
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return p == nullptr || ((uintptr_t)p % n) == 0;
+}
+
+dim3 tile_grid(int R, int C, int frames) {
+  return dim3((unsigned)((C + TILE_COLS - 1) / TILE_COLS),
+              (unsigned)((R + TILE_ROWS - 1) / TILE_ROWS), (unsigned)frames);
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller has checked shapes, dtype, contiguity and device.
+// The widest half-window (train_hs + guard_hs) the tile kernels take.
+extern "C" int cfar_max_half_window() {
+  return ((MAX_BLOCK_BYTES - LIST_BYTES) / (TILE_COLS * 4) - TILE_ROWS) / 2;
+}
+
+// The three launchers return cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a window the kernel does not take. Each launches
+// on `stream`; the caller has checked shapes, dtype, contiguity and device.
+
 extern "C" int cfar_sum_launch(const void* img, void* det, void* thr,
                                int B, int R, int C, int train_hs,
                                int guard_hs, float tau, int mode,
                                int use_gate, float gate, int extend,
                                void* stream) {
-  const long long total = (long long)B * R * C;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  cfar_sum_kernel<<<(unsigned int)blocks, threads, 0,
-                    (cudaStream_t)stream>>>(
-      (const float*)img, (bool*)det, (float*)thr, R, C, total, train_hs,
-      guard_hs, tau, mode, use_gate, gate, extend);
+  if (train_hs + guard_hs > cfar_max_half_window())
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * R * C == 0) return 0;
+  const int smem = (int)tile_bytes(train_hs + guard_hs);
+  const bool vec = C % 4 == 0 && aligned(img, 16) && aligned(det, 4) &&
+                   aligned(thr, 16);
+  const bool main_window = train_hs == 20 && guard_hs == 5;
+  void (*k)(const float*, bool*, float*, int, int, int, int, float, int, int,
+            float, int) =
+      main_window ? (vec ? cfar_sum_kernel<20, 5, true>
+                         : cfar_sum_kernel<20, 5, false>)
+                  : (vec ? cfar_sum_kernel<0, 0, true>
+                         : cfar_sum_kernel<0, 0, false>);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long plane = (long long)R * C;
+  for (int b0 = 0; b0 < B; b0 += MAX_FRAMES) {
+    const int nb = B - b0 < MAX_FRAMES ? B - b0 : MAX_FRAMES;
+    k<<<tile_grid(R, C, nb), dim3(GROUPS, STRIPS), smem, s>>>(
+        (const float*)img + b0 * plane, (bool*)det + b0 * plane,
+        thr == nullptr ? nullptr : (float*)thr + b0 * plane, R, C, train_hs,
+        guard_hs, tau, mode, use_gate, gate, extend);
+  }
   return (int)cudaGetLastError();
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a window the kernel does not take. The caller
-// has checked shapes, dtype, contiguity, device and 0 <= rank < 2*train_hs.
+extern "C" int cfar_os_mask_launch(const void* img, void* det, int B, int R,
+                                   int C, int train_hs, int guard_hs,
+                                   int rank, float tau, int use_gate,
+                                   float gate, int extend, void* stream) {
+  if (train_hs + guard_hs > cfar_max_half_window() ||
+      2 * train_hs > OS_MAX_CELLS || !(tau > 0.0f && tau <= FLT_MAX))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * R * C == 0) return 0;
+  const int smem = (int)tile_bytes(train_hs + guard_hs);
+  const bool vec = C % 4 == 0 && aligned(img, 16) && aligned(det, 4);
+  const bool main_window = train_hs == 20 && guard_hs == 5;
+  void (*k)(const float*, bool*, int, int, int, int, int, float, int, float,
+            int) =
+      main_window ? (vec ? cfar_os_mask_kernel<20, 5, true>
+                         : cfar_os_mask_kernel<20, 5, false>)
+                  : (vec ? cfar_os_mask_kernel<0, 0, true>
+                         : cfar_os_mask_kernel<0, 0, false>);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long plane = (long long)R * C;
+  for (int b0 = 0; b0 < B; b0 += MAX_FRAMES) {
+    const int nb = B - b0 < MAX_FRAMES ? B - b0 : MAX_FRAMES;
+    k<<<tile_grid(R, C, nb), dim3(GROUPS, STRIPS), smem, s>>>(
+        (const float*)img + b0 * plane, (bool*)det + b0 * plane, R, C,
+        train_hs, guard_hs, rank, tau, use_gate, gate, extend);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int cfar_os_launch(const void* img, void* det, void* thr,
                               int B, int R, int C, int train_hs, int guard_hs,
                               int rank, float tau, int use_gate, float gate,

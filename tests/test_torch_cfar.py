@@ -17,6 +17,10 @@
   on float images its threshold is an upper bound within
   ``tau * 256 * 2**-22`` of the exact one, and the masks agree outside that
   margin.
+* The OS mask kernel's rank count (``#{i : tau * v_i < x} >= rank + 1``, no
+  selection) equals ``x > tau * kth`` for tau > 0 and, without -inf cells,
+  for tau == 0: it is held to ``cfar_os_plain``'s mask, with NaN and inf
+  pixels, and to the Pallas kernel's mask on integer pings.
 * The CUDA kernels against the plain versions are in test_torch_cfar_cuda.py.
 """
 
@@ -29,7 +33,10 @@ import torch
 
 import sonar_slam_tpu.kernels.cfar as jcfar
 import sonar_slam_torch.kernels.cfar as tcfar
-from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_os_plain, cfar_plain
+from sonar_slam_torch.kernels.cfar_cuda import (cfar_detect, cfar_os_plain,
+                                                cfar_plain, os_mask_path,
+                                                valid_rows)
+from sonar_slam_torch.kernels.cfar_factors import threshold_factor_os
 
 torch.set_num_threads(1)
 MARGIN = 1e-5
@@ -143,6 +150,75 @@ def test_os_plain_against_pallas(integer, rank, edge, gate):
         near = np.abs(imgs - thr) <= margin
         np.testing.assert_array_equal(det[~near], jdet[~near])
     assert det.any()
+
+
+def _rank_count_mask(imgs, t, g, rank, tau, gate, edge):
+    """The OS mask kernel's rule in torch: the clamped window of each pixel,
+    times tau, counted below the pixel."""
+    R = imgs.shape[-2]
+    rows = torch.arange(R)
+    offsets = [o for o in range(-t - g, t + g + 1) if abs(o) > g]
+    windows = torch.stack(
+        [imgs[..., torch.clamp(rows + o, 0, R - 1), :] for o in offsets], -1)
+    count = ((tau * windows) < imgs[..., None]).sum(-1)
+    det = (count >= rank + 1) & valid_rows(R, t, g, edge, "cpu")[:, None]
+    return det & (imgs > gate) if gate is not None else det
+
+
+TAU_OS = threshold_factor_os(40, 10, 0.1)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("tau", [0.0, 1.6, TAU_OS])
+@pytest.mark.parametrize("rank", [0, 10, 39])
+@pytest.mark.parametrize("edge", ["strict", "extend"])
+@pytest.mark.parametrize("gate", [None, 65.0])
+def test_rank_count_equals_selection(integer, tau, rank, edge, gate):
+    imgs = _pings(8, (2, 96, 24))
+    if integer:
+        imgs = np.floor(imgs)
+    imgs[0, 40, 3] = np.nan
+    imgs[1, 50, 7] = np.inf
+    imgs[1, 52, 7] = 300.0  # inf among its training cells
+    imgs = torch.as_tensor(imgs)
+    det, _ = cfar_os_plain(imgs, 20, 5, rank, tau, gate, edge)
+    count_det = _rank_count_mask(imgs, 20, 5, rank, tau, gate, edge)
+    assert torch.equal(count_det, det)
+    assert det.any() and not det[0, 40, 3]
+
+
+@pytest.mark.parametrize("rank,tau", [(0, 7.3), (10, TAU_OS), (39, 1.0)])
+@pytest.mark.parametrize("edge,gate", [("strict", None), ("extend", 65.0)])
+def test_rank_count_equals_pallas_on_integer_pings(rank, tau, edge, gate):
+    imgs = np.floor(np.clip(_pings(9, (2, 96, 24)), 0.0, 255.0))
+    jdet, _ = _pallas(imgs, 20, 5, tau, "OS", gate, edge, rank)
+    det = _rank_count_mask(torch.as_tensor(imgs), 20, 5, rank, tau, gate,
+                           edge)
+    np.testing.assert_array_equal(det.numpy(), jdet)
+    assert jdet.any()
+
+
+def test_rank_count_needs_positive_tau():
+    """With tau == 0 a -inf cell breaks the identity: fl(0 * -inf) is NaN,
+    so a window whose rank-th cell is -inf has threshold NaN and no
+    detection, while its finite cells still count below x. So the mask
+    kernel takes only tau > 0."""
+    imgs = torch.full((1, 64, 4), 100.0)
+    imgs[0, 20, :] = -np.inf  # a leading cell of rows 26 ... 45
+    det, _ = cfar_os_plain(imgs, 20, 5, 0, 0.0, None, "extend")
+    count_det = _rank_count_mask(imgs, 20, 5, 0, 0.0, None, "extend")
+    assert not det[0, 30].any() and count_det[0, 30].all()
+    det, _ = cfar_os_plain(imgs, 20, 5, 0, 1e-3, None, "extend")
+    assert torch.equal(_rank_count_mask(imgs, 20, 5, 0, 1e-3, None, "extend"),
+                       det)
+
+
+def test_os_mask_path_takes_only_a_positive_finite_tau():
+    assert os_mask_path(TAU_OS, with_threshold=False)
+    assert os_mask_path(1e-30, with_threshold=False)
+    assert not os_mask_path(TAU_OS, with_threshold=True)
+    for tau in (0.0, -1.0, 1e-50, 1e39, np.inf, np.nan):  # 1e-50 rounds to 0
+        assert not os_mask_path(tau, with_threshold=False)
 
 
 def test_detect_os_on_cpu_is_the_plain_version():
