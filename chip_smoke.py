@@ -41,7 +41,26 @@ the script exits non-zero without printing the result line:
    (tests/golden/small_norefine_traj.npz); see ``check_small``;
 7. reference, refinement on: the small configuration with refinement
    against the JAX package's result (tests/golden/small_traj.npz), twice;
-   see ``check_small_refine``.
+   see ``check_small_refine``;
+8. the FOG-gyro front end: phase 4's survey and configuration through
+   ``replay(frontend="dr_gyro")``, with the launch counters reset just
+   before. Checks the odometry at the pings and the keyframe pings against
+   the JAX package's (tests/golden/full_frontends_odometry.npz), at least one
+   CFAR launch, all of the sum kernel, and the keyframes, loops and ATE
+   below, exactly; see ``run_frontend_path``;
+9. the Kalman front end: the same with ``frontend="kalman"`` (DR-basis
+   aggregation off: the Kalman filter gives no basis integrals) and the
+   default Kalman configuration adapted to the 50 Hz IMU, the same checks;
+   then the Kalman scan alone, timed, and once more under ``torch.profiler``
+   to count its kernel launches;
+10. bench.py's dual-sonar lane (bench.py:792-953): ``replay(use_vertical=True)``
+   at its configuration, twice, with the counters reset before each. Checks
+   (a) the vertical launch's mask against the plain version bit for bit and
+   against the JAX mask (tests/golden/dual_lane.npz) up to pixels within a
+   relative 1e-5 of their threshold, and times that call; (b) the fusion
+   stage on the golden's JAX inputs against its JAX outputs; (c) the lane's
+   keyframes against the JAX result's and bench.py's ``dual_sonar`` numbers,
+   its z RMSE within DUAL_Z_BAND_M of the JAX result's; see ``run_dual_lane``.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -88,6 +107,22 @@ BENCH_R05_SOCA = {"ate_cm": 3.33, "ate_deg": 0.147, "loops": 95,
 # either way
 SCAN_ATOL_M = 1e-3
 SMALL_ATE_BAND_M = 0.02
+# phases 8 and 9: the odometry at the pings against the JAX package's within
+# these (the cumulative sums run in other orders; on the CPU the gaps are
+# 1.1e-4 m / 1.9e-6 rad with dr_gyro and 2.1e-4 m / 3e-8 rad with kalman,
+# tests/test_torch_frontends.py; on an H100 80GB HBM3 at 700 W 9.0e-5 m /
+# 2.9e-6 rad and 2.1e-4 m / 3e-8 rad), and the port's own first result on
+# that card, exactly (keyframes, loops, ATE m and deg, rounded as for phase
+# 4). No JAX run of the full survey through these front ends past the
+# keyframe gate exists, as for phase 4.
+ODO_POS_ATOL_M, ODO_ANG_ATOL = 1e-3, 2e-5
+FRONTEND_EXPECTED = {"dr_gyro": (73, 7, 0.0715, 0.121),
+                     "kalman": (72, 7, 0.2357, 0.245)}
+# phase 10: the card's z RMSE within this of the JAX result's (the port on
+# the CPU lands 0.0 m from it, tests/test_torch_dual_lane.py), and the JAX
+# package's lane on a TPU (BENCH_r05.json), printed for scale only
+DUAL_Z_BAND_M = 5e-3
+BENCH_R05_DUAL = {"z_rmse_cm": 4.15, "z_points": 922}
 
 
 def log(*args):
@@ -105,6 +140,26 @@ def cuda_time_ms(fn, stacks, reps: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for i in range(reps):
+        fn(stacks[i % len(stacks)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, stacks, reps: int = 50) -> float:
+    """Mean device ms of ``fn(stack)`` for a call too small to outrun the
+    host: the launches are queued behind a kernel that sleeps (about 30 ms)
+    while the host enqueues them, so they run back to back and the events
+    time the device alone."""
+    import torch
+
+    fn(stacks[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for i in range(reps):
         fn(stacks[i % len(stacks)])
@@ -212,6 +267,29 @@ def small_config(seed: int = 0):
                      nssm_every=1, icp_floor=(0.3, 0.3, 0.1))
     return sim, dims, params, FeatureConfig(max_points=dims.max_points,
                                             corroborate=False)
+
+
+def dual_config(seed: int = 0):
+    """bench.py's dual-sonar lane (bench.py:818-844), in the port's types:
+    (sim, dims, params builder, FeatureConfig)."""
+    import dataclasses
+
+    import torch
+    from sonar_slam_torch.slam import FeatureConfig, SlamParams
+
+    small_sim, dims, _, _ = small_config(seed)
+    sim = dataclasses.replace(small_sim, vertical_sonar=True)
+    dims = dataclasses.replace(dims, refine_iters=2, refine_sweep=True,
+                               refine_chain=True)
+
+    def build(device):
+        return SlamParams.default(dims, device)._replace(
+            keyframe_translation=2.0, ssm_min_points=20, nssm_min_points=20,
+            fuse_odometry=True, use_best_start_tf=True,
+            odom_sigmas=torch.tensor([0.05, 0.05, 0.01], device=device),
+            icp_odom_sigmas=torch.tensor([0.3, 0.3, 0.03], device=device))
+
+    return sim, dims, build, FeatureConfig(max_points=dims.max_points)
 
 
 def _params(dims, kf_translation, nssm_min_points, nssm_every, icp_floor):
@@ -659,6 +737,237 @@ def check_small_refine(dev):
                            "JAX results")
 
 
+def ping_odometry(res, bag, frontend: str):
+    """A replay's odometry at the pings: the front end's ticks are the DVL
+    samples (dead reckoning) or the IMU events (Kalman)."""
+    from sonar_slam_torch.io.dataset import match_pings_to_ticks
+
+    ticks = bag.imu_time if frontend == "kalman" else bag.dvl_time
+    idx, _ = match_pings_to_ticks(bag.ping_time, ticks)
+    return res.dr_poses_at_ticks[idx]
+
+
+def run_frontend_path(bag, dev, frontend: str) -> int:
+    """Phase 4's survey through ``frontend`` ("dr_gyro" or "kalman"), held
+    to the JAX package's odometry and keyframes and to the port's own first
+    card result. Returns the sum kernel's launch count of the run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.pipeline import ate_heading_deg, ate_rmse, replay
+
+    sim, dims, params_on, fcfg = full_config(seed=0)
+    if frontend == "kalman":
+        dims = dataclasses.replace(dims, aggregate_with_dr_basis=False)
+    ref = np.load(os.path.join(HERE, "tests", "golden",
+                               "full_frontends_odometry.npz"))
+    params = params_on(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfar_cuda.cfar_detect.launches = 0
+    cfar_cuda.cfar_detect.kernel_launches["sum"] = 0
+    t0 = time.perf_counter()
+    res = replay(bag, fcfg, params, dims, dev, frontend=frontend)
+    wall = time.perf_counter() - t0
+    launches = cfar_cuda.cfar_detect.launches
+    sum_launches = cfar_cuda.cfar_detect.kernel_launches["sum"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    truth = bag.true_pose_at_ping[res.keyframe_ping_idx]
+    ate = ate_rmse(res.trajectory, truth)
+    ate_deg = ate_heading_deg(res.trajectory, truth)
+    dr_ate = ate_rmse(res.dr_trajectory, truth)
+    odo = ping_odometry(res, bag, frontend)
+    want = ref[f"{frontend}_ping_pose3"]
+    pos_err = float(np.abs(odo[:, :3] - want[:, :3]).max())
+    ang_err = float(np.abs(odo[:, 3:] - want[:, 3:]).max())
+    kf_ok = np.array_equal(res.keyframe_ping_idx,
+                           ref[f"{frontend}_keyframe_ping_idx"])
+    nl = res.carry.num_loops
+    log(f"{frontend} path: {res.num_keyframes} keyframes (JAX keyframe pings "
+        f"equal: {kf_ok}), {nl} loops, ATE {ate:.4f} m / {ate_deg:.3f} deg (DR "
+        f"{dr_ate:.4f} m), odometry at the pings against JAX: max abs diff "
+        f"{pos_err} m, {ang_err} rad; wall {wall:.2f} s, stages s "
+        f"{json.dumps(res.stage_s)}, peak memory {peak / 2**20:.1f} MiB, CFAR "
+        f"launches {launches}, of them the sum kernel {sum_launches}")
+    if not np.isfinite(res.trajectory).all():
+        raise RuntimeError(f"{frontend} path: trajectory not finite")
+    if sum_launches < 1 or sum_launches != launches:
+        raise RuntimeError(f"{frontend} path made {launches} CFAR launches, "
+                           f"{sum_launches} of the sum kernel")
+    if not kf_ok or pos_err > ODO_POS_ATOL_M or ang_err > ODO_ANG_ATOL:
+        raise RuntimeError(f"{frontend} path: odometry or keyframes differ "
+                           f"from the JAX package's")
+    got = (res.num_keyframes, nl, round(ate, 4), round(ate_deg, 3))
+    expected = FRONTEND_EXPECTED[frontend]
+    if expected is not None and got != expected:
+        raise RuntimeError(f"{frontend} path: (keyframes, loops, ATE m, ATE "
+                           f"deg) {got}, expected {expected}")
+    return sum_launches
+
+
+def time_kalman_scan(bag, dev) -> dict:
+    """The Kalman front end alone on the card: its wall time (twice) and,
+    under ``torch.profiler``, its kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sonar_slam_torch.pipeline import odometry
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        odometry(bag, dev, "kalman")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        odometry(bag, dev, "kalman")
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if "LaunchKernel" in e.key or e.key.startswith("cuLaunch"):
+            names[e.key] = e.count
+    n_events = len(bag.imu_time) + len(bag.dvl_time) + len(bag.depth_time)
+    out = {"wall_s": walls, "launch_calls": names,
+           "launches": sum(names.values()), "events": n_events}
+    log(f"kalman scan on the card ({n_events} events): wall s {walls}, kernel "
+        f"launch calls under torch.profiler {json.dumps(names)}")
+    return out
+
+
+def run_dual_lane(dev, entry) -> int:
+    """bench.py's dual-sonar lane on the card, twice; see the module doc,
+    phase 10. Adds the vertical call's numbers to the sum kernel's entry and
+    returns the lane's sum-kernel launches of one replay."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.io.simulate import simulate_bag
+    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_plain
+    from sonar_slam_torch.kernels.cfar_factors import threshold_factor_soca
+    from sonar_slam_torch.pipeline import dual_sonar_metrics, replay
+    from sonar_slam_torch.slam import RefineParams
+    from sonar_slam_torch.slam.dual_sonar import ElevationSpec, fuse_frames_global
+
+    sim, dims, params_on, fcfg = dual_config(seed=0)
+    bag = simulate_bag(sim)
+    ref = np.load(os.path.join(HERE, "tests", "golden", "dual_lane.npz"))
+    runs = []
+    for _ in range(2):  # bench.py times the second run
+        params, rparams = params_on(dev), RefineParams.default(dev)
+        torch.cuda.synchronize()
+        cfar_cuda.cfar_detect.launches = 0
+        cfar_cuda.cfar_detect.kernel_launches["sum"] = 0
+        t0 = time.perf_counter()
+        res = replay(bag, fcfg, params, dims, dev, use_vertical=True,
+                     refine_params=rparams)
+        wall = time.perf_counter() - t0
+        runs.append((res, wall, cfar_cuda.cfar_detect.launches,
+                     cfar_cuda.cfar_detect.kernel_launches["sum"]))
+    res, wall, launches, sum_launches = runs[1]
+    m = dual_sonar_metrics(res, bag, sim)
+    lane = {"z_rmse_m": m["z_rmse_m"], "z_points": m["z_points"],
+            "elevation_cells": m["elevation_cells"], "wall_s": wall,
+            "first_wall_s": runs[0][1], "xrealtime": sim.duration / wall}
+    jax_lane = {k: float(ref[k]) for k in ("z_rmse_m", "z_points",
+                                            "elevation_cells")}
+    kf_ok = np.array_equal(res.keyframe_ping_idx, ref["keyframe_ping_idx"])
+    nl = res.carry.num_loops
+    repeat = float(np.abs(res.trajectory - runs[0][0].trajectory).max())
+    traj_err = (float(np.abs(res.trajectory - ref["trajectory"]).max())
+                if res.trajectory.shape == ref["trajectory"].shape else None)
+    log(f"dual lane: {res.num_keyframes} keyframes (JAX keyframe pings equal: "
+        f"{kf_ok}), {nl} loops (JAX {int(ref['num_loops'])}), trajectory max "
+        f"abs diff to JAX {traj_err} m, to the first run {repeat} m; "
+        f"dual_sonar {json.dumps(lane)}; JAX result {json.dumps(jax_lane)}; "
+        f"stages s {json.dumps(res.stage_s)}; CFAR launches {launches}, of "
+        f"them the sum kernel {sum_launches}")
+    log(f"dual lane, for scale only: the JAX package's lane on a TPU "
+        f"(BENCH_r05.json) {json.dumps(BENCH_R05_DUAL)}")
+
+    # (a) the vertical call: the kernel against the plain version, the JAX
+    # mask, and its time beside its bytes bound
+    K = dims.max_keyframes
+    kf = res.keyframe_ping_idx
+    sel = np.concatenate([kf, np.zeros(K - len(kf), np.int64)])
+    t, g, gate = fcfg.ntc // 2, fcfg.ngc // 2, fcfg.threshold
+    tau = threshold_factor_soca(fcfg.ntc, fcfg.pfa)
+    stacks = [torch.as_tensor(bag.vertical_images[np.clip(sel + o, 0, len(
+        bag.ping_time) - 1)], dtype=torch.float32, device=dev).contiguous()
+        for o in (0, 1)]
+    vimgs = stacks[0]
+    det_k = cfar_detect(vimgs, t, g, tau, "SOCA", gate, "strict")
+    det_p, thr_p = cfar_plain(vimgs, t, g, tau, "SOCA", gate, "strict")
+    shape = tuple(int(x) for x in ref["vdet_shape"])
+    jdet = torch.as_tensor(np.unpackbits(ref["vdet_bits"])[:int(np.prod(shape))]
+                           .reshape(shape).astype(bool), device=dev)
+    plain_mm = int((det_k != det_p).sum())
+    jdiff = det_k != jdet
+    margin = ((vimgs - thr_p).abs() / thr_p.abs().clamp(min=1e-30))[jdiff]
+    jax_mm = int(jdiff.sum())
+    worst = float(margin.max()) if jax_mm else 0.0
+    log(f"dual lane vertical mask {tuple(vimgs.shape)} strict, gated: against "
+        f"the plain version {plain_mm} mismatches of {det_p.numel()} "
+        f"({int(det_p.sum())} detections); against the JAX mask {jax_mm} "
+        f"pixels differ, the farthest at a relative {worst} from its "
+        f"threshold")
+    if plain_mm or (jax_mm and worst > 1e-5):
+        raise RuntimeError("dual lane: the vertical mask disagrees")
+    k1 = cuda_time_ms(lambda x: cfar_detect(x, t, g, tau, "SOCA", gate,
+                                            "strict"), stacks)
+    k2 = cuda_time_ms(lambda x: cfar_detect(x, t, g, tau, "SOCA", gate,
+                                            "strict"), stacks)
+    p1 = cuda_time_ms(lambda x: cfar_plain(x, t, g, tau, "SOCA", gate,
+                                           "strict"), stacks)
+    # at this size the host's dispatch paces the calls timed above; queued
+    # behind a sleeping kernel, the launches run back to back
+    dev_ms = queued_ms(lambda x: cfar_detect(x, t, g, tau, "SOCA", gate,
+                                             "strict"), stacks)
+    rows = vimgs.shape[1] - 2 * (t + g)  # strict: the rows that may detect
+    ops = 2 * t * int((vimgs[:, t + g:t + g + rows] > gate).sum())
+    vb, vby = bound(vimgs, ops)
+    log(f"dual lane vertical call ms: by CUDA events {k1} {k2} (paced by the "
+        f"host's dispatch), queued behind a sleeping kernel {dev_ms}, plain "
+        f"{p1}; bound {vb} ({vby}); the {vimgs.numel() * 5 / 1e6:.2f} MB stay "
+        f"in L2")
+    entry.update(vertical_ms=dev_ms, vertical_dispatch_ms=min(k1, k2),
+                 vertical_plain_ms=p1, vertical_bound_ms=vb,
+                 vertical_bound_by=vby, vertical_shape=list(vimgs.shape))
+
+    # (b) the fusion stage on the golden's JAX inputs
+    x0, y0, rs, nx, ny = ref["elevation_spec"]
+    out = fuse_frames_global(
+        torch.as_tensor(ref["points"], device=dev),
+        torch.as_tensor(ref["pmasks"], device=dev), vimgs, jdet,
+        torch.as_tensor(ref["poses"], device=dev), bag.vertical_geometry,
+        ElevationSpec(float(x0), float(y0), float(rs), int(nx), int(ny)))
+    names = ("points3d", "points3d_mask", "floor_points3d", "floor_weights",
+             "elevation_z", "elevation_w")
+    errs = {}
+    for name, a in zip(names, (*out[:4], out[4].z, out[4].w)):
+        a = a.cpu().numpy().astype(np.float64)
+        b = ref[name].astype(np.float64)
+        errs[name] = float(np.abs(a - b).max())
+        if not np.allclose(a, b, rtol=1e-5, atol=2e-5):
+            raise RuntimeError(f"dual lane fusion stage: {name} differs from "
+                               f"the JAX result")
+    log(f"dual lane fusion stage on the JAX inputs, max abs diff to the JAX "
+        f"outputs: {json.dumps(errs)}")
+
+    # (c) the whole lane
+    if not np.array_equal(res.trajectory, runs[0][0].trajectory):
+        raise RuntimeError("dual lane: the second replay differs from the first")
+    if not kf_ok or abs(m["z_rmse_m"] - jax_lane["z_rmse_m"]) > DUAL_Z_BAND_M:
+        raise RuntimeError("dual lane: keyframes or z RMSE differ from the "
+                           "JAX result")
+    if sum_launches != 2 or launches != 2:
+        raise RuntimeError(f"dual lane made {launches} CFAR launches, "
+                           f"{sum_launches} of the sum kernel; expected 2 "
+                           f"(horizontal and vertical), both of it")
+    return sum_launches
+
+
 def main() -> int:
     import torch
 
@@ -740,7 +1049,6 @@ def main() -> int:
 
     # 5) the OS slice: bench.py's whole full pipeline with the OS detector
     entry_os["launches"] = run_os_path(bag, dev)
-    del bag
 
     # 6) small configuration, refinement off: the card against the port on
     # the CPU (which the CPU tests hold to the JAX package) and against the
@@ -750,8 +1058,21 @@ def main() -> int:
     # 7) small configuration, refinement on, against the JAX result
     check_small_refine(dev)
 
+    # 8-9) the FOG-gyro and Kalman front ends on phase 4's survey
+    by_path = {"soca": entry["launches"]}
+    for frontend in ("dr_gyro", "kalman"):
+        by_path[frontend] = run_frontend_path(bag, dev, frontend)
+    kalman = time_kalman_scan(bag, dev)
+    del bag
+    torch.cuda.empty_cache()
+
+    # 10) bench.py's dual-sonar lane
+    by_path["dual"] = run_dual_lane(dev, entry)
+    entry["launches_by_path"] = by_path
+
     log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "
         f"(from the build)")
+    log(json.dumps({"kalman_scan": kalman}))
     log(json.dumps({"kernels": [entry, entry_os]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

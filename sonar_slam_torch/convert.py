@@ -2,7 +2,8 @@
 
 The system has no weights: its state is its configuration (``SlamDims``,
 ``SlamParams``, ``RefineParams``, ``FeatureConfig``, ``ICPConfig``,
-``DRConfig``) and, mid-run, a ``SlamCarry``. Each function here takes the JAX package's object with its
+``DRConfig``, ``GyroConfig``, ``KalmanConfig``) and, mid-run, a
+``SlamCarry``. Each function here takes the JAX package's object with its
 arrays already turned into numpy arrays (``np.asarray`` on every leaf) and
 its other values as plain Python values, and returns the port's equivalent.
 Nothing here imports JAX: the objects are read by field name.
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from .cloud import ICPConfig
-from .estimators import DRConfig
+from .estimators import DRConfig, GyroConfig, KalmanConfig
 from .graph import GraphState
 from .slam.core import SlamCarry, SlamDims, SlamParams
 from .slam.frontend import FeatureConfig
@@ -67,16 +68,30 @@ def _scalar(v):
     return float(np.float32(v))
 
 
-def refine_params_from_reference(rp, device) -> RefineParams:
-    """A JAX ``RefineParams`` (numpy leaves) -> the port's: scalars become
-    Python numbers and bools, vectors float32 tensors on ``device``."""
-    src = _fields(rp)
+def _leaves(cls, cfg, device):
+    """Arrays become float32 tensors on ``device``, scalars the Python values
+    holding their exact value (``_scalar``)."""
+    src = _fields(cfg)
     out = {}
-    for name in RefineParams._fields:
+    for name in cls._fields:
         v = np.asarray(src[name])
         out[name] = (torch.as_tensor(v.astype(np.float32), device=device)
                      if v.ndim else _scalar(v))
-    return RefineParams(**out)
+    return cls(**out)
+
+
+def refine_params_from_reference(rp, device) -> RefineParams:
+    """A JAX ``RefineParams`` (numpy leaves) -> the port's: scalars become
+    Python numbers and bools, vectors float32 tensors on ``device``."""
+    return _leaves(RefineParams, rp, device)
+
+
+def gyro_config_from_reference(cfg, device) -> GyroConfig:
+    return _leaves(GyroConfig, cfg, device)
+
+
+def kalman_config_from_reference(cfg, device) -> KalmanConfig:
+    return _leaves(KalmanConfig, cfg, device)
 
 
 def params_from_reference(params, device) -> SlamParams:

@@ -1,5 +1,5 @@
-"""Odometry front ends. Only dead reckoning is ported so far; the Kalman
-and FOG-gyro front ends are still to come."""
+"""Odometry front ends: dead reckoning (optionally FOG-yaw driven), the FOG
+gyro integrator and the 12-state Kalman filter."""
 
 from .dead_reckoning import (
     DRConfig,
@@ -7,4 +7,13 @@ from .dead_reckoning import (
     dead_reckoning_scan,
     dead_reckoning_with_basis_scan,
     dvl_basis_scan,
+)
+from .gyro import GyroConfig, gyro_integrate
+from .kalman import (
+    EVENT_DEPTH,
+    EVENT_DVL,
+    EVENT_GYRO,
+    EVENT_IMU,
+    KalmanConfig,
+    kalman_scan,
 )

@@ -5,7 +5,8 @@ version is a ``lax.scan`` over ~24,000 ticks (50 Hz, 480 s); a Python loop
 per tick would be hundreds of thousands of launches. The recurrence needs no
 loop, because its state is a function of the last usable tick:
 
-* ``yaw0`` is the IMU yaw at the first valid tick;
+* ``yaw0`` is the IMU yaw at the first valid tick (with ``use_gyro`` the
+  heading is the tick's FOG yaw instead, and the roll carries no offset);
 * a tick is usable when it is valid and at or after the first valid tick
   whose velocity passes the over-speed gate (an over-speed tick before
   initialization is dropped); the gate state ``prev_time``, ``prev_vel`` and
@@ -64,9 +65,6 @@ def _dr_lanes(ticks: DRTicks, config: DRConfig,
               vel_masks: torch.Tensor) -> torch.Tensor:
     """Dead reckoning of L lanes, lane l integrating ``vel * vel_masks[l]``:
     (L, T, 6) pose3 emitted at every tick."""
-    if config.use_gyro:
-        raise NotImplementedError(
-            "DRConfig.use_gyro (the dr_gyro front end) is not ported yet")
     time, euler, depth, valid = ticks.time, ticks.euler, ticks.depth, ticks.valid
     T = time.shape[0]
     dev = time.device
@@ -74,10 +72,15 @@ def _dr_lanes(ticks: DRTicks, config: DRConfig,
     vel = ticks.vel[None] * vel_masks[:, None, :]  # (L, T, 3)
     ar = torch.arange(T, device=dev)
 
-    first_valid = torch.min(torch.where(valid, ar, torch.full_like(ar, T)))
-    yaw0 = euler[torch.clamp(first_valid, max=T - 1), 2]
-    yaw = euler[:, 2] - yaw0
-    roll = config.roll_offset + euler[:, 0]
+    if config.use_gyro:
+        # the FOG yaw drives the heading; the roll carries no mount offset
+        yaw = ticks.gyro_yaw
+        roll = euler[:, 0]
+    else:
+        first_valid = torch.min(torch.where(valid, ar, torch.full_like(ar, T)))
+        yaw0 = euler[torch.clamp(first_valid, max=T - 1), 2]
+        yaw = euler[:, 2] - yaw0
+        roll = config.roll_offset + euler[:, 0]
     rpy = torch.stack([roll, euler[:, 1], yaw], dim=-1)  # (T, 3)
 
     over = torch.any(torch.abs(vel) > config.dvl_max_velocity, dim=-1)  # (L, T)

@@ -12,4 +12,17 @@ from .se2 import (
     se2_transform_points,
     wrap_angle,
 )
-from .se3 import pose3_make, pose3_to_pose2
+from .se3 import (
+    pose2_to_pose3,
+    pose3_between,
+    pose3_compose,
+    pose3_inverse,
+    pose3_make,
+    pose3_rotmat,
+    pose3_to_pose2,
+    pose3_transform_points,
+    rot3_compose,
+    rot3_inverse,
+    rot3_to_ypr,
+    rot3_ypr,
+)

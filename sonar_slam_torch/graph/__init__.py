@@ -7,7 +7,9 @@ from .factor_graph import (
     add_prior,
     cov_to_sqrt_info,
     graph_init,
+    marginal_covariance,
     optimize,
+    optimize_batch,
     optimize_with_marginal,
     set_pose_estimate,
     sigmas_to_sqrt_info,

@@ -173,7 +173,7 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig):
     J = J * active[:, None, None]
 
     n = 3 * K + (2 if config.estimate_scale else 0)
-    A = torch.zeros((F, 3, n + 3), dtype=torch.float32, device=dev)
+    A = J.new_zeros((F, 3, n + 3))  # batched under optimize_batch's vmap
     ar = torch.arange(F, device=dev)
     cols = torch.arange(3, device=dev)
     ci = 3 * state.f_i[:, None] + cols  # (F, 3)
@@ -230,64 +230,114 @@ def _scaled_cho_solve(Lf, b):
     return x[:, 0] if vec else x
 
 
+def _gn_step(state: GraphState, poses, log_scale, prev_delta, lam,
+             config: GraphConfig):
+    """One relinearized Gauss-Newton sweep from (poses, log_scale) with the
+    adaptive Levenberg damping ``lam`` and the trust-region step clamp.
+    Returns (poses, log_scale, max_delta, lam); ``max_delta`` is inf when
+    the solve failed."""
+    K = config.max_poses
+    dev = poses.device
+    valid = (torch.arange(K, device=dev) < state.num_poses)[:, None]
+    st = state._replace(poses=poses, log_scale=log_scale)
+    H, b = _assemble_normal_equations(st, config)
+    Hd = H + lam * torch.diag(torch.diagonal(H))
+    delta = -_scaled_cho_solve(_scaled_cho_factor(Hd), b)
+    finite = torch.all(torch.isfinite(delta))
+    delta = torch.where(finite, delta, torch.zeros_like(delta))
+    if config.estimate_scale:
+        ds = delta[3 * K: 3 * K + 2]
+        delta = delta[: 3 * K]
+    else:
+        ds = torch.zeros(2, device=dev)
+    delta = delta.reshape(K, 3)
+    vdelta = torch.where(valid, delta, torch.zeros_like(delta))
+    if config.step_clamp_t > 0.0:
+        big_t = torch.max(torch.abs(vdelta[:, :2]))
+        big_r = torch.max(torch.abs(vdelta[:, 2]))
+        shrink = torch.clamp(torch.minimum(
+            config.step_clamp_t / torch.clamp(big_t, min=1e-12),
+            config.step_clamp_r / torch.clamp(big_r, min=1e-12)), max=1.0)
+        delta, vdelta, ds = delta * shrink, vdelta * shrink, ds * shrink
+    log_scale = log_scale + ds
+    poses = torch.where(valid, se2_retract(poses, delta), poses)
+    max_delta = torch.maximum(torch.max(torch.abs(vdelta)),
+                              torch.max(torch.abs(ds)))
+    max_delta = torch.where(finite, max_delta,
+                            torch.full_like(max_delta, float("inf")))
+    grew = finite & (max_delta > prev_delta * 1.05)
+    lam = torch.where(
+        ~finite, torch.clamp(lam, min=1e-6) * 100.0,
+        torch.where(grew, torch.clamp(torch.clamp(lam, min=1e-8) * 30.0,
+                                      max=1.0), lam * 0.25))
+    return poses, log_scale, max_delta, lam
+
+
 def optimize(state: GraphState, config: GraphConfig) -> GraphState:
     """Up to ``config.gn_iters`` relinearized Gauss-Newton sweeps with the
     adaptive Levenberg damping and the trust-region step clamp of the JAX
     version; stops once the largest step component is below tolerance."""
-    K = config.max_poses
     dev = state.poses.device
     poses, log_scale = state.poses, state.log_scale
     prev_delta = torch.tensor(float("inf"), device=dev)
     lam = torch.tensor(0.0, device=dev)
-    valid = (torch.arange(K, device=dev) < state.num_poses)[:, None]
     for _ in range(config.gn_iters):
-        st = state._replace(poses=poses, log_scale=log_scale)
-        H, b = _assemble_normal_equations(st, config)
-        Hd = H + lam * torch.diag(torch.diagonal(H))
-        delta = -_scaled_cho_solve(_scaled_cho_factor(Hd), b)
-        finite = torch.all(torch.isfinite(delta))
-        delta = torch.where(finite, delta, torch.zeros_like(delta))
-        if config.estimate_scale:
-            ds = delta[3 * K: 3 * K + 2]
-            delta = delta[: 3 * K]
-        else:
-            ds = torch.zeros(2, device=dev)
-        delta = delta.reshape(K, 3)
-        vdelta = torch.where(valid, delta, torch.zeros_like(delta))
-        if config.step_clamp_t > 0.0:
-            big_t = torch.max(torch.abs(vdelta[:, :2]))
-            big_r = torch.max(torch.abs(vdelta[:, 2]))
-            shrink = torch.clamp(torch.minimum(
-                config.step_clamp_t / torch.clamp(big_t, min=1e-12),
-                config.step_clamp_r / torch.clamp(big_r, min=1e-12)), max=1.0)
-            delta, vdelta, ds = delta * shrink, vdelta * shrink, ds * shrink
-        log_scale = log_scale + ds
-        poses = torch.where(valid, se2_retract(poses, delta), poses)
-        max_delta = torch.maximum(torch.max(torch.abs(vdelta)),
-                                  torch.max(torch.abs(ds)))
-        max_delta = torch.where(finite, max_delta,
-                                torch.full_like(max_delta, float("inf")))
-        grew = finite & (max_delta > prev_delta * 1.05)
-        lam = torch.where(
-            ~finite, torch.clamp(lam, min=1e-6) * 100.0,
-            torch.where(grew, torch.clamp(torch.clamp(lam, min=1e-8) * 30.0,
-                                          max=1.0), lam * 0.25))
-        prev_delta = max_delta
-        if not bool(max_delta > config.convergence_tol):
+        poses, log_scale, prev_delta, lam = _gn_step(
+            state, poses, log_scale, prev_delta, lam, config)
+        if not bool(prev_delta > config.convergence_tol):
             break
     return state._replace(poses=poses, log_scale=log_scale)
+
+
+def marginal_covariance(state: GraphState, keys, config: GraphConfig):
+    """Marginal covariance of pose ``keys`` (gtsam's ``marginalCovariance``):
+    the (k, k) blocks of H⁻¹ at the current linearization, from one
+    factorization. (3, 3) for one key (an int or a 0-d tensor), (M, 3, 3)
+    for a 1-D tensor of M keys."""
+    K = config.max_poses
+    H, _ = _assemble_normal_equations(state, config)
+    Lf = _scaled_cho_factor(H)
+    dev = H.device
+    if isinstance(keys, int):
+        k = torch.full((1,), keys, dtype=torch.int64, device=dev)
+    else:
+        k = keys.reshape(-1).to(device=dev, dtype=torch.int64)
+    n = 3 * K + (2 if config.estimate_scale else 0)
+    M = k.shape[0]
+    rows = (3 * k[:, None] + torch.arange(3, device=dev)).reshape(-1)
+    e = torch.zeros((n, 3 * M), dtype=torch.float32, device=dev)
+    e[rows, torch.arange(3 * M, device=dev)] = 1.0
+    cols = _scaled_cho_solve(Lf, e)  # (n, 3M)
+    cov = cols[rows].reshape(M, 3, M, 3).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+    return cov if isinstance(keys, torch.Tensor) and keys.ndim == 1 else cov[0]
 
 
 def optimize_with_marginal(state: GraphState, k, config: GraphConfig):
     """``optimize`` plus the 3x3 marginal covariance of pose ``k`` from the
     final linearization."""
-    K = config.max_poses
     state = optimize(state, config)
-    H, _ = _assemble_normal_equations(state, config)
-    Lf = _scaled_cho_factor(H)
-    n = 3 * K + (2 if config.estimate_scale else 0)
-    rows = 3 * k + torch.arange(3, device=H.device)
-    e = torch.zeros((n, 3), dtype=torch.float32, device=H.device)
-    e[rows, torch.arange(3, device=H.device)] = 1.0
-    cols = _scaled_cho_solve(Lf, e)
-    return state, cols[rows, :]
+    return state, marginal_covariance(state, k, config)
+
+
+def optimize_batch(states: GraphState, config: GraphConfig) -> GraphState:
+    """``optimize`` over a batch of graphs (every field with a leading batch
+    axis), as the JAX package's vmap of its ``while_loop`` runs: a graph
+    whose step fell below tolerance keeps its estimate while the others go
+    on, up to ``config.gn_iters`` sweeps."""
+    B = states.poses.shape[0]
+    dev = states.poses.device
+    step = vmap(lambda st, p, s, d, lam: _gn_step(st, p, s, d, lam, config))
+    poses, log_scale = states.poses, states.log_scale
+    prev_delta = torch.full((B,), float("inf"), device=dev)
+    lam = torch.zeros(B, device=dev)
+    for _ in range(config.gn_iters):
+        active = prev_delta > config.convergence_tol
+        if not bool(active.any()):
+            break
+        out = step(states, poses, log_scale, prev_delta, lam)
+        a = active[:, None, None]
+        poses = torch.where(a, out[0], poses)
+        log_scale = torch.where(a[:, 0], out[1], log_scale)
+        prev_delta = torch.where(active, out[2], prev_delta)
+        lam = torch.where(active, out[3], lam)
+    return states._replace(poses=poses, log_scale=log_scale)

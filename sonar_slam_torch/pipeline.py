@@ -1,23 +1,28 @@
 """End-to-end offline replay of a sensor bag on one device.
 
-Counterpart of ``sonar_slam_tpu/pipeline.py::replay`` for the dead-reckoning
-front end:
+Counterpart of ``sonar_slam_tpu/pipeline.py::replay``:
 
-1. dead reckoning over the synchronized ticks (with the DVL basis integrals
-   when the configuration asks for them), on the device;
+1. the odometry front end, on the device: dead reckoning over the
+   synchronized ticks (``"dr"``, with the DVL basis integrals when the
+   configuration asks for them), the same with the FOG yaw (``"dr_gyro"``),
+   or the 12-state Kalman filter over the merged sensor events
+   (``"kalman"``);
 2. the keyframe gate (a host loop over the pings);
 3. CFAR feature extraction of the keyframe pings, and with the temporal
    corroboration gate of both neighbours of each (three batched CFAR
    launches on a CUDA device);
 4. ``slam_scan`` over the keyframes;
 5. ``refine_loops`` when ``dims.refine_iters > 0``;
-6. the dense trajectory: every ping's DR delta composed onto its latest
-   keyframe's optimized pose.
+6. the dense trajectory: every ping's odometry delta composed onto its
+   latest keyframe's optimized pose;
+7. with ``use_vertical``, dual-sonar fusion: one strict-edge SOCA launch
+   over the keyframes' vertical pings, then the global elevation grid and
+   the lifted 3-D clouds (``slam/dual_sonar.py``).
 
 ``occupancy_map`` is bench.py's mapping stage on the result's carry, and
-``loop_metrics`` / ``ate_rmse`` / ``ate_heading_deg`` score a replay against
-the simulator's truth. Options that are not ported yet (the Kalman and gyro
-front ends, dual sonar) raise ``NotImplementedError`` naming the option.
+``loop_metrics`` / ``ate_rmse`` / ``ate_heading_deg`` / ``dual_sonar_metrics``
+score a replay against the simulator's truth. The JAX package's ``mesh`` option (sharding the
+refinement lanes over devices) has no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -29,10 +34,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .estimators import DRConfig, dead_reckoning_scan, dead_reckoning_with_basis_scan
-from .geometry import pose3_to_pose2, se2_between, se2_compose
+from .estimators import (
+    EVENT_DEPTH,
+    EVENT_DVL,
+    EVENT_GYRO,
+    EVENT_IMU,
+    DRConfig,
+    GyroConfig,
+    KalmanConfig,
+    dead_reckoning_scan,
+    dead_reckoning_with_basis_scan,
+    gyro_integrate,
+    kalman_scan,
+)
+from .geometry import pose3_to_pose2, se2_between, se2_compose, se2_transform_points
 from .io.dataset import SensorStreams, build_dr_ticks, match_pings_to_ticks
-from .io.simulate import SyntheticBag
+from .io.simulate import SyntheticBag, seafloor_z
+from .kernels.cfar_cuda import cfar_detect
+from .kernels.cfar_factors import threshold_factor_soca
 from .mapping import (
     MappingConfig,
     SubmapModel,
@@ -41,9 +60,11 @@ from .mapping import (
     occupancy_grid_method1,
     render_global_logodds,
 )
+from .mapping.metrics import _umeyama_se2
 from .precision import pin_fp32
 from .slam.core import KeyframeInput, SlamDims, SlamParams, select_keyframes, slam_scan
 from .slam.frontend import FeatureConfig, FeatureExtractor, corroborate
+from .slam.dual_sonar import ElevationSpec, fuse_frames_global
 from .slam.refine import RefineParams, refine_loops
 
 
@@ -59,11 +80,97 @@ class ReplayResult(NamedTuple):
     dr_poses_at_ticks: np.ndarray  # (T, 6) full-rate odometry
     dense_trajectory: np.ndarray  # (Ts, 3) SLAM pose at every ping
     stage_s: dict  # host-clock seconds per stage, each ended by a device sync
+    # dual sonar (use_vertical): the fused clouds, the per-beam floor samples
+    # as 3-D points (local frames) and the global elevation grid
+    points3d: np.ndarray | None = None  # (K', N, 3)
+    points3d_mask: np.ndarray | None = None
+    floor_points3d: np.ndarray | None = None  # (K', Cv, 3)
+    floor_weights: np.ndarray | None = None  # (K', Cv)
+    elevation_z: np.ndarray | None = None  # (H, W)
+    elevation_w: np.ndarray | None = None  # (H, W)
+    elevation_spec: object | None = None  # ElevationSpec
 
 
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _kalman_odometry(bag: SyntheticBag, kalman_config: KalmanConfig, device):
+    """The merged sensor event stream through the Kalman filter: (times
+    (T,), poses3 (T, 6)) at the IMU events, where the filter publishes."""
+    times = [bag.imu_time, bag.dvl_time, bag.depth_time]
+    types = [np.full(len(bag.imu_time), EVENT_IMU, np.int32),
+             np.full(len(bag.dvl_time), EVENT_DVL, np.int32),
+             np.full(len(bag.depth_time), EVENT_DEPTH, np.int32)]
+    zeros = np.zeros_like(bag.depth)
+    zs = [bag.imu_rpy, bag.dvl_vel, np.stack([bag.depth, zeros, zeros], -1)]
+    if kalman_config.use_gyro and bag.gyro_time is not None:
+        # FOG delta-yaw corrections; the simulator's gyro frame is already
+        # sonar-aligned (identity offset)
+        times.append(bag.gyro_time)
+        types.append(np.full(len(bag.gyro_time), EVENT_GYRO, np.int32))
+        zg = np.zeros((len(bag.gyro_time), 3), np.float32)
+        zg[:, 0] = bag.gyro_delta[:, 0]
+        zs.append(zg)
+    times = np.concatenate(times)
+    types = np.concatenate(types)
+    z = np.concatenate(zs).astype(np.float32)
+    order = np.argsort(times, kind="stable")
+    times, types, z = times[order], types[order], z[order]
+    _, _, poses = kalman_scan(types, torch.as_tensor(z, device=device),
+                              kalman_config)
+    imu = np.nonzero(types == EVENT_IMU)[0]
+    return times[imu], poses[torch.as_tensor(imu, device=device)]
+
+
+def default_kalman_config(imu_time: np.ndarray, device) -> KalmanConfig:
+    """``KalmanConfig.default`` with no IMU offset, its IMU period and
+    transition set from the bag's median IMU period (the position integrates
+    ``v * dt_imu`` at each IMU event)."""
+    cfg = KalmanConfig.default(device)._replace(imu_offset=0.0)
+    dt = float(np.median(np.diff(imu_time)))
+    A = cfg.A_imu.clone()
+    A[0, 6] = A[1, 7] = A[3, 9] = A[4, 10] = dt
+    return cfg._replace(dt_imu=dt, A_imu=A)
+
+
+def odometry(bag: SyntheticBag, device, frontend: str = "dr",
+             dr_config: DRConfig = DRConfig(roll_offset=0.0),
+             gyro_config: GyroConfig | None = None,
+             kalman_config: KalmanConfig | None = None, basis: bool = False):
+    """The odometry front end of ``replay``: (tick times (T,) on the host,
+    pose3 at the ticks (T, 6), DVL basis integrals (T, 2, 2) or None). The
+    dead-reckoning front ends tick at the DVL samples and give the basis
+    integrals when ``basis``; the Kalman filter ticks at the IMU events and
+    gives none."""
+    if frontend not in ("dr", "dr_gyro", "kalman"):
+        raise ValueError(f"unknown front end {frontend!r}")
+    pin_fp32()
+    if frontend == "kalman":
+        if kalman_config is None:
+            kalman_config = default_kalman_config(bag.imu_time, device)
+        return (*_kalman_odometry(bag, kalman_config, device), None)
+    gyro_time = gyro_yaw = None
+    if frontend == "dr_gyro":
+        if gyro_config is None:
+            gyro_config = GyroConfig(offset_matrix=torch.eye(3, device=device),
+                                     latitude=0.0, sensor_rate=50.0, roll0=0.0)
+        ypr = gyro_integrate(torch.as_tensor(bag.gyro_delta, device=device),
+                             gyro_config)
+        gyro_yaw = ypr[:, 0].cpu().numpy()
+        gyro_time = bag.gyro_time
+        dr_config = dr_config._replace(use_gyro=True)
+    streams = SensorStreams(
+        imu_time=bag.imu_time, imu_rpy=bag.imu_rpy, dvl_time=bag.dvl_time,
+        dvl_vel=bag.dvl_vel, depth_time=bag.depth_time, depth=bag.depth,
+        gyro_time=gyro_time, gyro_yaw=gyro_yaw)
+    bundle = build_dr_ticks(streams, device)
+    if basis:
+        poses3, tick_basis = dead_reckoning_with_basis_scan(bundle.ticks,
+                                                            dr_config)
+        return bundle.tick_time, poses3, tick_basis
+    return bundle.tick_time, dead_reckoning_scan(bundle.ticks, dr_config), None
 
 
 def replay(
@@ -74,37 +181,37 @@ def replay(
     device,
     dr_config: DRConfig = DRConfig(roll_offset=0.0),
     frontend: str = "dr",
+    gyro_config: GyroConfig | None = None,
+    kalman_config: KalmanConfig | None = None,
     use_vertical: bool = False,
     refine_params: RefineParams | None = None,
 ) -> ReplayResult:
     """Replay ``bag`` on ``device`` (a torch device or its name).
-    ``refine_params`` defaults to ``RefineParams.default``."""
-    if frontend != "dr":
-        raise NotImplementedError(
-            f"replay(frontend={frontend!r}): only the 'dr' front end is ported")
-    if use_vertical:
-        raise NotImplementedError("replay(use_vertical=True): dual sonar is "
-                                  "not ported")
+
+    ``frontend`` is ``"dr"``, ``"dr_gyro"`` or ``"kalman"``. ``dr_gyro``
+    defaults to an identity mount, latitude 0, a 50 Hz gyro and roll0 0;
+    ``kalman`` to ``default_kalman_config`` and refuses DR-basis aggregation,
+    whose basis integrals only dead reckoning gives. ``refine_params``
+    defaults to ``RefineParams.default``."""
+    if use_vertical and bag.vertical_images is None:
+        raise ValueError("bag has no vertical sonar stream")
     pin_fp32()
     dev = torch.device(device)
     stage_s = {}
     t0 = time.perf_counter()
 
-    # 1) dead reckoning over synchronized ticks
-    streams = SensorStreams(
-        imu_time=bag.imu_time, imu_rpy=bag.imu_rpy, dvl_time=bag.dvl_time,
-        dvl_vel=bag.dvl_vel, depth_time=bag.depth_time, depth=bag.depth)
-    bundle = build_dr_ticks(streams, dev)
-    tick_basis = None
-    if ((dims.refine_scale_basis and dims.estimate_dvl_scale)
-            or dims.aggregate_with_dr_basis):
-        dr_poses3, tick_basis = dead_reckoning_with_basis_scan(bundle.ticks,
-                                                               dr_config)
-    else:
-        dr_poses3 = dead_reckoning_scan(bundle.ticks, dr_config)
+    # 1) the odometry front end
+    tick_time, dr_poses3, tick_basis = odometry(
+        bag, dev, frontend, dr_config, gyro_config, kalman_config,
+        basis=((dims.refine_scale_basis and dims.estimate_dvl_scale)
+               or dims.aggregate_with_dr_basis))
+    if dims.aggregate_with_dr_basis and tick_basis is None:
+        raise ValueError(
+            "aggregate_with_dr_basis requires a DR frontend (the basis "
+            "integrals come from dead_reckoning_with_basis_scan)")
 
     # 2) pair pings with odometry, keyframe gate
-    tick_idx, sync_ok = match_pings_to_ticks(bag.ping_time, bundle.tick_time)
+    tick_idx, sync_ok = match_pings_to_ticks(bag.ping_time, tick_time)
     tick_idx_t = torch.as_tensor(tick_idx, device=dev)
     ping_dr3 = dr_poses3[tick_idx_t]
     ping_dr2 = pose3_to_pose2(ping_dr3)
@@ -174,13 +281,39 @@ def replay(
     def host(x):
         return x.detach().cpu().numpy()
 
+    # 7) dual sonar: vertical detections of the keyframes, then the fusion
+    fused = {}
+    if use_vertical:
+        t0 = time.perf_counter()
+        vimgs = torch.as_tensor(bag.vertical_images[sel], dtype=torch.float32,
+                                device=dev)
+        # the JAX package detects the vertical fan with cfar_soca2, whose
+        # edge is strict: rows within ntc/2 + ngc/2 of a border never detect
+        vdet = cfar_detect(
+            vimgs, feature_config.ntc // 2, feature_config.ngc // 2,
+            threshold_factor_soca(feature_config.ntc, feature_config.pfa),
+            "SOCA", intensity_threshold=feature_config.threshold, edge="strict")
+        # the elevation grid spans the survey area (trajectory +- max range)
+        half = float(dims.max_range) * (1.0 + dims.aggregation_extent)
+        res = 0.5
+        n = int(np.ceil(2 * half / res))
+        espec = ElevationSpec(x0=-half, y0=-half, resolution=res, nx=n, ny=n)
+        p3, p3m, floor3, fw, egrid = fuse_frames_global(
+            carry.points, carry.pmasks, vimgs, vdet, carry.poses,
+            bag.vertical_geometry, espec)
+        fused = dict(points3d=host(p3), points3d_mask=host(p3m),
+                     floor_points3d=host(floor3), floor_weights=host(fw),
+                     elevation_z=host(egrid.z), elevation_w=host(egrid.w),
+                     elevation_spec=espec)
+        stage_s["dual"] = time.perf_counter() - t0
+
     return ReplayResult(
         trajectory=host(carry.poses[:nk]), covs=host(carry.covs[:nk]),
         dr_trajectory=host(carry.dr_poses[:nk]),
         keyframe_times=host(carry.times[:nk]), keyframe_ping_idx=kf_idx,
         num_keyframes=nk, outputs=outputs, carry=carry,
         dr_poses_at_ticks=host(dr_poses3), dense_trajectory=host(dense),
-        stage_s=stage_s,
+        stage_s=stage_s, **fused,
     )
 
 
@@ -267,3 +400,29 @@ def ate_heading_deg(est: np.ndarray, truth: np.ndarray,
         dth = dth + np.arctan2(R[1, 0], R[0, 0])
     dth = np.arctan2(np.sin(dth), np.cos(dth))
     return float(np.degrees(np.sqrt(np.mean(dth**2))))
+
+
+def dual_sonar_metrics(res: ReplayResult, bag: SyntheticBag, sim) -> dict:
+    """bench.py's ``dual_sonar`` accuracy keys for a ``use_vertical`` replay
+    of a simulated bag (``sim`` its ``SimConfig``): the fused heights of the
+    lifted horizontal points (|z| > 0.1 m) and of the per-beam floor samples
+    against the simulator's seafloor, sampled in the truth frame through the
+    SE(2) alignment of the keyframe trajectory. Returns ``z_rmse_m``,
+    ``z_points`` and ``elevation_cells`` (unrounded)."""
+    nk = res.num_keyframes
+    truth = bag.true_pose_at_ping[res.keyframe_ping_idx[:nk]]
+    align = _umeyama_se2(res.trajectory[:, :2], truth[:, :2])
+    poses = torch.as_tensor(np.array(res.trajectory, np.float32))
+    zerrs = []
+    for k in range(nk):
+        for pts, m in ((res.points3d[k], res.points3d_mask[k]
+                        & (np.abs(res.points3d[k][:, 2]) > 0.1)),
+                       (res.floor_points3d[k], res.floor_weights[k] > 0)):
+            if m.any():
+                g = se2_transform_points(torch.as_tensor(pts[m, :2]),
+                                         poses[k]).numpy()
+                zerrs.append(pts[m, 2] - seafloor_z(sim, *align(g).T))
+    zerr = np.concatenate(zerrs) if zerrs else np.full(1, np.inf)
+    return {"z_rmse_m": float(np.sqrt(np.mean(zerr**2))),
+            "z_points": int(sum(len(z) for z in zerrs)),
+            "elevation_cells": int((res.elevation_w > 0).sum())}

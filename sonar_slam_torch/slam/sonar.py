@@ -1,17 +1,37 @@
-"""Oculus imaging-sonar geometry (numpy only).
+"""Oculus imaging-sonar geometry and image ops.
 
-A copy of ``SonarGeometry`` from ``sonar_slam_tpu/slam/sonar.py`` without the
-JAX image ops, so the simulator and the feature front end can build their
-static tables on a machine without JAX.
+Counterpart of ``sonar_slam_tpu/slam/sonar.py``: ``SonarGeometry`` (numpy
+tables, so the simulator and the feature front end can build them on any
+host) and the image ops on torch tensors: the polar-to-Cartesian remap as a
+precomputed gather, the gamma curves, Wiener deconvolution with the measured
+Oculus bearing PSF (``torch.fft``) and the field-of-view test. The fire
+message decoder and ``SonarGeometry.from_ping`` belong to the bag reader,
+which is not ported.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 OCULUS_VERTICAL_APERTURE = {1: np.deg2rad(20.0), 2: np.deg2rad(12.0)}
+
+_PSF_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "data", "oculus_psf.npy")
+_psf_cache: np.ndarray | None = None
+
+
+def oculus_psf() -> np.ndarray:
+    """The measured 1x512 Oculus bearing point-spread function (a data
+    table, ``sonar_slam_torch/data/oculus_psf.npy``)."""
+    global _psf_cache
+    if _psf_cache is None:
+        _psf_cache = np.load(_PSF_PATH).astype(np.float32)
+    return _psf_cache
 
 
 @dataclass(frozen=True)
@@ -42,6 +62,33 @@ class SonarGeometry:
     def angular_resolution(self) -> float:
         return self.horizontal_aperture / self.num_bearings
 
+    def _interp(self, name: str, x: np.ndarray, y: np.ndarray):
+        """Cubic interpolant (linear below 4 samples), -1 outside, cached on
+        the instance."""
+        cache = self.__dict__.get("_interp_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_interp_cache", cache)
+        if name not in cache:
+            from scipy.interpolate import interp1d
+
+            kind = "cubic" if len(x) >= 4 else "linear"
+            cache[name] = interp1d(x, y, kind=kind, bounds_error=False,
+                                   fill_value=-1, assume_sorted=True)
+        return cache[name]
+
+    def bearing_to_col(self, bearings) -> np.ndarray:
+        """Continuous column of each bearing (rad); -1 outside the aperture."""
+        f = self._interp("b2c", np.asarray(self.bearings, np.float64),
+                         np.arange(self.num_bearings, dtype=np.float64))
+        return np.asarray(f(bearings), np.float32)
+
+    def col_to_bearing(self, cols) -> np.ndarray:
+        """Bearing (rad) at each continuous column; -1 outside."""
+        f = self._interp("c2b", np.arange(self.num_bearings, dtype=np.float64),
+                         np.asarray(self.bearings, np.float64))
+        return np.asarray(f(cols), np.float32)
+
     @staticmethod
     def make(
         num_ranges: int = 512,
@@ -70,3 +117,103 @@ class SonarGeometry:
         r = self.ranges[:, None]
         b = self.bearings[None, :]
         return np.stack([r * np.cos(b), r * np.sin(b)], axis=-1).astype(np.float32)
+
+    def cart_image_shape(self) -> tuple[int, int]:
+        """(rows, cols) of the Cartesian image."""
+        height = self.max_range
+        width = np.sin((self.bearings[-1] - self.bearings[0]) / 2) * height * 2
+        return self.num_ranges, int(np.ceil(width / self.range_resolution))
+
+    def cart_gather_indices(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(rows, cols) index maps and validity for the nearest-neighbour
+        polar-to-Cartesian gather; bearings map to columns through the cubic
+        interpolant."""
+        rows, cols = self.cart_image_shape()
+        XX, YY = np.meshgrid(np.arange(cols), np.arange(rows))
+        x = self.range_resolution * (rows - YY)
+        y = self.range_resolution * (-cols / 2.0 + XX + 0.5)
+        b = np.arctan2(y, x)
+        r = np.sqrt(x**2 + y**2)
+        row_idx = np.round(r / self.range_resolution - 1).astype(np.int32)
+        col_idx = np.round(self.bearing_to_col(b)).astype(np.int32)
+        valid = (
+            (row_idx >= 0)
+            & (row_idx < self.num_ranges)
+            & (col_idx >= 0)
+            & (col_idx < self.num_bearings)
+            & (b >= self.bearings[0])
+            & (b <= self.bearings[-1])
+        )
+        return (
+            np.clip(row_idx, 0, self.num_ranges - 1),
+            np.clip(col_idx, 0, self.num_bearings - 1),
+            valid,
+        )
+
+
+def remap_polar_to_cart(img: torch.Tensor, row_idx, col_idx, valid) -> torch.Tensor:
+    """Rectify a polar image [..., R, C] to Cartesian with the precomputed
+    gather of ``SonarGeometry.cart_gather_indices``."""
+    dev = img.device
+    row_idx = torch.as_tensor(row_idx, dtype=torch.int64, device=dev)
+    col_idx = torch.as_tensor(col_idx, dtype=torch.int64, device=dev)
+    valid = torch.as_tensor(valid, device=dev)
+    out = img[..., row_idx, col_idx]
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=dev))
+
+
+def adjust_gamma(img: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
+    """(img / 255)^gamma * 255."""
+    return torch.pow(img / 255.0, gamma) * 255.0
+
+
+def decompress_gamma(img: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Undo the sonar's on-device gamma: clip(pow(i / 255, 255 / gamma) *
+    255); ``gamma`` is the raw fire-message byte."""
+    out = torch.pow(img / 255.0, 255.0 / gamma) * 255.0
+    return torch.clamp(out, 0, 255)
+
+
+def deconvolve_ping(img: torch.Tensor, noise: float = 0.01) -> torch.Tensor:
+    """Wiener inverse filtering with the measured Oculus bearing PSF."""
+    return wiener_deconvolve(img, torch.as_tensor(oculus_psf(), device=img.device),
+                             noise)
+
+
+def wiener_deconvolve(img: torch.Tensor, psf: torch.Tensor,
+                      noise: float = 0.01) -> torch.Tensor:
+    """Remove the bearing impulse response by Wiener-style inverse filtering
+    of a [R, C] image: divide its spectrum by the PSF's with a
+    noise-regularized inverse, recenter, clip at 0 and rescale to the input's
+    peak.
+
+    Two choices follow the JAX package on purpose: the PSF spectrum is not
+    conjugated (the reference multiplies the raw spectrum, which pairs with
+    its recentering for the near-symmetric measured PSF), and the rows roll
+    by ``-(kh // 2)``, 0 for the 1-row PSF."""
+    img = img.to(torch.float32)
+    kh, kw = psf.shape
+    psf_padded = torch.zeros_like(img)
+    psf_padded[:kh, :kw] = psf
+    img_f = torch.fft.fft2(img)
+    psf_f = torch.fft.fft2(psf_padded)
+    ipsf_f = psf_f / (torch.abs(psf_f) ** 2 + noise)
+    result = torch.real(torch.fft.ifft2(img_f * ipsf_f))
+    result = torch.roll(result, -(kh // 2), dims=0)
+    result = torch.roll(result, -(kw // 2), dims=1)
+    result = torch.clamp(result, min=0.0)
+    scale = torch.max(img) / torch.clamp(torch.max(result), min=1e-9)
+    return result * scale
+
+
+def points_in_fov(points: torch.Tensor, pose: torch.Tensor, max_range,
+                  half_aperture, range_pad=0.0, bearing_pad=0.0) -> torch.Tensor:
+    """Which global-frame points [..., N, 2] fall inside the (padded) sonar
+    field-of-view wedge at ``pose`` [..., 3]."""
+    from ..geometry import se2_inverse, se2_transform_points
+
+    local = se2_transform_points(points, se2_inverse(pose))
+    ranges = torch.linalg.norm(local, dim=-1)
+    bearings = torch.atan2(local[..., 1], local[..., 0])
+    return (ranges < max_range + range_pad) & (
+        torch.abs(bearings) < half_aperture + bearing_pad)

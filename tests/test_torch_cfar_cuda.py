@@ -202,3 +202,38 @@ def test_kernel_refuses_what_it_does_not_take(card):
         cfar_detect(imgs.transpose(1, 2), 8, 2, 2.0)
     with pytest.raises(ValueError):  # a 1,064-row tile: over shared memory
         cfar_detect(imgs, 20, 480, 2.0)
+
+
+def _vertical_pings(shape, seed=13):
+    """Vertical-fan-like pings: speckle under a bright seafloor band whose
+    range falls across the fan's beams, as the dual-sonar lane's vertical
+    pings look (a band crossing the strict edge rows of some beams)."""
+    rng = np.random.default_rng(seed)
+    B, R, C = shape
+    x = rng.exponential(15.0, size=shape).astype(np.float32)
+    rows = np.arange(R)[:, None]
+    for b in range(B):
+        floor = rng.uniform(0.1, 0.95) * R + np.linspace(-0.3, 0.3, C) * R
+        band = np.exp(-0.5 * ((rows - floor[None, :]) / 1.5) ** 2)
+        x[b] += (rng.uniform(150, 400) * band).astype(np.float32)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 192, 48), (5, 150, 41)],
+                         ids=["dual-lane", "ragged"])
+@pytest.mark.parametrize("with_threshold", [False, True])
+def test_sum_kernel_on_vertical_fan_pings(card, shape, with_threshold):
+    """The dual-sonar lane's vertical call: SOCA, strict edge, gated at 65."""
+    imgs = torch.as_tensor(_vertical_pings(shape), device=card)
+    before = _launches("sum")
+    out = cfar_detect(imgs, 20, 5, 1.6, "SOCA", 65.0, "strict",
+                      with_threshold=with_threshold)
+    det, thr = out if with_threshold else (out, None)
+    pdet, pthr = cfar_plain(imgs, 20, 5, 1.6, "SOCA", 65.0, "strict")
+    torch.cuda.synchronize()
+    assert _launches("sum") == (before[0] + 1, before[1] + 1)
+    assert torch.equal(det, pdet)
+    assert int(pdet.sum()) > 10 * shape[0]
+    if with_threshold:
+        assert torch.equal(thr, pthr)

@@ -95,3 +95,30 @@ def test_select_keyframes(ticks):
     np.testing.assert_array_equal(tmask, jmask)
     assert dims_from_reference(jdims).graph_config().max_factors == \
         jdims.graph_config().max_factors
+
+
+@pytest.mark.parametrize("basis", [False, True])
+def test_dead_reckoning_use_gyro(ticks, basis):
+    """The FOG yaw drives the heading and the roll carries no offset;
+    positions within the cumulative sum's POS_ATOL, the rest equal."""
+    arrs = dict(ticks)
+    rng = np.random.default_rng(3)
+    arrs["gyro_yaw"] = (np.cumsum(0.02 * rng.normal(size=len(arrs["time"])))
+                        .astype(np.float32))
+    jt, tt = _both(arrs)
+    jcfg = je.DRConfig(roll_offset=np.pi / 2, use_gyro=True)
+    tcfg = dr_config_from_reference(jcfg)
+    assert tcfg.use_gyro
+    if basis:
+        jp, jb = je.dead_reckoning_with_basis_scan(jt, jcfg)
+        tp, tb = te.dead_reckoning_with_basis_scan(tt, tcfg)
+        np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=POS_ATOL)
+    else:
+        _, jp = je.dead_reckoning_scan(jt, jcfg)
+        tp = te.dead_reckoning_scan(tt, tcfg)
+    jp, tp = np.asarray(jp), tp.numpy()
+    np.testing.assert_allclose(tp[:, :2], jp[:, :2], atol=POS_ATOL)
+    np.testing.assert_array_equal(tp[:, 2:], jp[:, 2:])
+    used = arrs["valid"].copy()
+    used[:4] = False  # tick 3 is dropped: over-speed before initialization
+    np.testing.assert_array_equal(tp[used, 5], arrs["gyro_yaw"][used])

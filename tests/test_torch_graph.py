@@ -127,3 +127,94 @@ def test_pcm_select():
                                 min_pcm)
         np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
         assert int(ts) == int(js)
+
+
+def test_marginal_covariance_of_several_keys(problem):
+    steps, loops = problem
+    kw = dict(max_poses=12, max_factors=16, gn_iters=4, estimate_scale=True,
+              scale_prior_sigma=(0.05, 0.01))
+    jg = _build(jgr, jgr.GraphConfig(**kw), steps, loops)
+    tg = _build(tgr, tgr.GraphConfig(**kw), steps, loops)
+    keys = [0, 4, 9]
+    got = tgr.marginal_covariance(tg, torch.tensor(keys), tgr.GraphConfig(**kw))
+    assert got.shape == (3, 3, 3)
+    for k, c in zip(keys, got):
+        want = np.asarray(jgr.marginal_covariance(jg, k, jgr.GraphConfig(**kw)))
+        np.testing.assert_allclose(c.numpy(), want, rtol=1e-3, atol=1e-6)
+    one = tgr.marginal_covariance(tg, 4, tgr.GraphConfig(**kw))
+    np.testing.assert_array_equal(one.numpy(), got[1].numpy())
+
+
+@pytest.mark.parametrize("estimate_scale", [False, True])
+def test_optimize_batch_matches_vmapped_optimize(problem, estimate_scale):
+    """A batch of graphs whose Gauss-Newton loops stop after different
+    numbers of sweeps, against the JAX package's vmap of ``optimize``."""
+    import jax
+
+    steps, loops = problem
+    kw = dict(max_poses=12, max_factors=16, gn_iters=5,
+              estimate_scale=estimate_scale, scale_prior_sigma=(0.05, 0.01))
+    rng = np.random.default_rng(1)
+    jgs, tgs = [], []
+    for b in range(3):
+        st = [(z, noisy + rng.normal(scale=0.02 * b, size=3).astype(np.float32))
+              for z, noisy in steps]
+        jgs.append(_build(jgr, jgr.GraphConfig(**kw), st, loops))
+        tgs.append(_build(tgr, tgr.GraphConfig(**kw), st, loops))
+    jb = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *jgs)
+    js = jax.vmap(lambda g: jgr.optimize(g, jgr.GraphConfig(**kw)))(jb)
+    tb = tgr.GraphState(*[torch.stack(x) for x in zip(*tgs)])
+    ts = tgr.optimize_batch(tb, tgr.GraphConfig(**kw))
+    np.testing.assert_allclose(ts.poses.numpy(), np.asarray(js.poses), atol=2e-5)
+    np.testing.assert_allclose(ts.log_scale.numpy(), np.asarray(js.log_scale),
+                               atol=2e-6)
+    for b in range(3):  # each lane as the unbatched optimize gives it
+        one = tgr.optimize(tgs[b], tgr.GraphConfig(**kw))
+        np.testing.assert_allclose(ts.poses[b].numpy(), one.poses.numpy(),
+                                   atol=2e-6)
+
+
+def _assert_cov_blocks(got, want):
+    """Each 3x3 block within 1e-4 of its largest entry: the cross terms are
+    1e-3 to 1e-2 of the diagonal and carry the float32 solve's rounding
+    (measured 5.4e-5)."""
+    scale = np.abs(want).max(axis=(-2, -1), keepdims=True)
+    assert np.all(np.abs(got - want) <= 1e-4 * scale)
+
+
+def test_services(problem):
+    """predict_slam_update and query_pose_uncertainty on a carry holding the
+    test graph, against the JAX services."""
+    import jax
+
+    import sonar_slam_tpu.slam.core as jcore
+    from sonar_slam_tpu.cloud import ICPConfig
+    from sonar_slam_tpu.slam.services import (
+        predict_slam_update as j_predict, query_pose_uncertainty as j_query)
+    from sonar_slam_torch.convert import carry_from_reference, dims_from_reference
+    from sonar_slam_torch.slam.services import (
+        predict_slam_update, query_pose_uncertainty)
+
+    steps, loops = problem
+    jdims = jcore.SlamDims(max_keyframes=14, max_loops=4, gn_iters=4,
+                           icp=ICPConfig())
+    jg = _build(jgr, jdims.graph_config(), steps, loops)
+    jg = jgr.optimize(jg, jdims.graph_config())
+    jcarry = jcore.slam_init(jdims)._replace(graph=jg, poses=jg.poses,
+                                             num_kf=jnp.asarray(10, jnp.int32))
+    carry = carry_from_reference(jax.tree_util.tree_map(np.asarray, jcarry), "cpu")
+    dims = dims_from_reference(jdims)
+    odom = np.asarray([[[1.0, 0.0, 0.0], [1.0, 0.0, 0.0]],
+                       [[1.0, 0.0, 0.5], [1.0, 0.0, 0.5]],
+                       [[0.5, 0.2, -0.3], [0.8, -0.1, 0.1]]], np.float32)
+    sig = np.asarray([0.2, 0.2, 0.02], np.float32)
+    jpred, jcov = j_predict(jcarry, jdims, jnp.asarray(odom), jnp.asarray(sig))
+    pred, cov = predict_slam_update(carry, dims, torch.as_tensor(odom),
+                                    torch.as_tensor(sig))
+    np.testing.assert_allclose(pred.numpy(), np.asarray(jpred), atol=2e-5)
+    _assert_cov_blocks(cov.numpy(), np.asarray(jcov))
+    keys = np.asarray([0, 5, 9])
+    got = query_pose_uncertainty(carry, dims, torch.as_tensor(keys))
+    _assert_cov_blocks(got.numpy(), np.asarray(j_query(jcarry, jdims,
+                                                       jnp.asarray(keys))))
+    assert np.trace(cov[0].numpy()) > np.trace(got[-1].numpy())

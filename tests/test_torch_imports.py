@@ -1,5 +1,7 @@
-"""No module of sonar_slam_torch imports JAX or the JAX package: a fresh
-interpreter with those imports blocked imports every module of the port."""
+"""No module of sonar_slam_torch, and not chip_smoke.py, imports JAX or the
+JAX package: a fresh interpreter with those imports blocked imports every
+module of the port and chip_smoke.py. None of them loads PyYAML either (the
+card's machine need not have it)."""
 
 import os
 import subprocess
@@ -23,10 +25,10 @@ import sonar_slam_torch
 names = ["sonar_slam_torch"] + [
     m.name for m in pkgutil.walk_packages(sonar_slam_torch.__path__,
                                           "sonar_slam_torch.")]
-for name in names:
+for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 added = set(sys.modules) - before
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu")
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu", "yaml")
                for m in added), sorted(added)
 assert "jax" not in sys.modules or "jax" in before
 print(" ".join(names))
@@ -41,5 +43,6 @@ def test_port_imports_no_jax():
     names = proc.stdout.strip().splitlines()[-1].split()
     assert len(names) >= 29
     for new in ("slam.refine", "mapping", "mapping.occupancy",
-                "mapping.metrics"):
+                "mapping.metrics", "estimators.gyro", "estimators.kalman",
+                "slam.dual_sonar", "slam.services"):
         assert "sonar_slam_torch." + new in names, new

@@ -225,10 +225,17 @@ def test_unported_options_raise(bag):
     params = tcore.SlamParams.default(dataclasses.replace(dims, ssm_sobol=8,
                                                           nssm_sobol=8), "cpu")
     fc = tpipe.FeatureConfig()
-    for kw in (dict(frontend="kalman"), dict(frontend="dr_gyro"),
-               dict(use_vertical=True)):
-        with pytest.raises(NotImplementedError):
+    # the front ends run; what the JAX replay refuses, the port refuses too
+    for kw in (dict(frontend="kalman"), dict(frontend="dr_gyro")):
+        res = tpipe.replay(tbag, fc, params, dims, "cpu", **kw)
+        assert np.isfinite(res.trajectory).all() and res.num_keyframes >= 1
+    for kw, match in ((dict(use_vertical=True), "no vertical sonar"),
+                      (dict(frontend="imu"), "unknown front end")):
+        with pytest.raises(ValueError, match=match):
             tpipe.replay(tbag, fc, params, dims, "cpu", **kw)
+    basis = dataclasses.replace(dims, aggregate_with_dr_basis=True)
+    with pytest.raises(ValueError, match="aggregate_with_dr_basis"):
+        tpipe.replay(tbag, fc, params, basis, "cpu", frontend="kalman")
     # loop refinement converts with every refine_* option; only the TPU
     # scan's chunk size is dropped
     assert dims_from_reference(jcore.SlamDims(scan_chunk=4)) == dims
