@@ -62,6 +62,21 @@ the script exits non-zero without printing the result line:
    keyframes against the JAX result's and bench.py's ``dual_sonar`` numbers,
    its z RMSE within DUAL_Z_BAND_M of the JAX result's; see ``run_dual_lane``.
 
+11. the bag seam: a small simulated survey with its pings quantized to
+   8 bits by the sonar's gamma, written as an lz4-chunked ROS bag with raw
+   ``sensor_msgs/Image`` pings (``io.rosbag.write_bag``), converted by
+   ``cli.convert_bag`` and replayed by ``cli.replay`` on the card with the
+   YAML configuration. The bundle must hold exactly the quantized arrays,
+   and the replay must equal an in-process ``pipeline.replay`` of those
+   arrays bit for bit; see ``run_bag_seam``;
+12. the CLI at full width: phase 4's survey written as an uncompressed
+   bundle and replayed by ``cli.replay`` (``--max-keyframes 128 --intensity
+   --save-submaps``, the YAML configuration), with the launch counters reset
+   just before. Checks the sum kernel's launches, ``slam_carry.npz``
+   reloaded leaf for leaf, ``occupancy.npz`` against a full repaint, the
+   ``states`` dtype, and the keyframes, loops and ATE below, exactly; see
+   ``run_cli_full``.
+
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -70,8 +85,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -123,6 +140,21 @@ FRONTEND_EXPECTED = {"dr_gyro": (73, 7, 0.0715, 0.121),
 # package's lane on a TPU (BENCH_r05.json), printed for scale only
 DUAL_Z_BAND_M = 5e-3
 BENCH_R05_DUAL = {"z_rmse_cm": 4.15, "z_points": 922}
+# phase 12: the CLI on phase 4's survey with the YAML configuration
+# (keyframes, loops, ATE m and deg, rounded as for phase 4): the port's own
+# first result on an H100 80GB HBM3 (700 W); no JAX run of this
+# configuration at full size exists. The keyframes are phase 4's (the gate
+# sees the same odometry and thresholds).
+CLI_EXPECTED = (73, 30, 0.2615, 0.652)
+# phase 12: the grid the CLI builds keyframe by keyframe against a full
+# repaint, as a share of the observed cells whose method-1 value may differ
+# (each keyframe's cells are divided exactly in the one and by the
+# reciprocal in the other; on the CPU none of 30,444 and 6 of 31,136
+# differ, tests/test_torch_cli.py and tests/test_torch_occupancy.py)
+CLI_REPAINT_SHARE = 0.002
+# the JAX package's state array layout (sonar_slam_tpu/io/state.py)
+JAX_STATE_DTYPE = [("time", "<f8"), ("pose", "<f4", (3,)),
+                   ("dr_pose3", "<f4", (6,)), ("cov", "<f4", (9,))]
 
 
 def log(*args):
@@ -174,12 +206,13 @@ HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 
 
-def bound(imgs, ops: float) -> tuple[float, str]:
-    """Least ms the card could take for a CFAR call on ``imgs`` that returns
-    the mask only: the larger of its bytes (each float32 pixel read once, each
-    bool written once) over the memory rate and ``ops`` over the float32
-    rate."""
-    bytes_ms = imgs.numel() * (4 + 1) / HBM_BYTES_S * 1e3
+def bound(imgs, ops: float, with_threshold: bool = False) -> tuple[float, str]:
+    """Least ms the card could take for a CFAR call on ``imgs``: the larger
+    of its bytes (each float32 pixel read once, each bool written once, and
+    with the threshold map each float32 threshold written once) over the
+    memory rate and ``ops`` over the float32 rate."""
+    per_pixel = 4 + 1 + (4 if with_threshold else 0)
+    bytes_ms = imgs.numel() * per_pixel / HBM_BYTES_S * 1e3
     ops_ms = ops / FP32_OPS_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -398,8 +431,11 @@ def check_kernel(stacks):
     lib = cuda_time_ms(library, padded)
     ms = min(k1, k2)
     bound_ms, bound_by = bound(imgs, 2 * t * gated_pixels(imgs, gate))
+    # with the threshold map every pixel's sums are needed (2 * t adds)
+    thr_bound, thr_by = bound(imgs, 2 * t * imgs.numel(), with_threshold=True)
     log(f"cfar SOCA extend {tuple(imgs.shape)} mask only ms: kernel {k1} {k2}, "
-        f"plain {p1} {p2}; with the threshold map {kt}; with a gate no pixel "
+        f"plain {p1} {p2}; with the threshold map {kt} (bound {thr_bound} "
+        f"({thr_by}), share {thr_bound / kt}); with a gate no pixel "
         f"passes (no window arithmetic) {floor}; conv2d window sums {lib}; "
         f"bound {bound_ms} ({bound_by}), share {bound_ms / ms}")
     return {"name": "cfar_sum_kernel (CA/SOCA/GOCA, fused intensity gate)",
@@ -410,6 +446,9 @@ def check_kernel(stacks):
             "ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound_ms,
             "bound_by": bound_by, "roofline_share": bound_ms / ms,
             "library_ms": lib, "ms_with_threshold": kt,
+            "bound_ms_with_threshold": thr_bound,
+            "bound_by_with_threshold": thr_by,
+            "roofline_share_with_threshold": thr_bound / kt,
             "library_call": "torch.nn.functional.conv2d, window sums only"}
 
 
@@ -511,6 +550,12 @@ def check_os_kernel(stacks):
     del windows
     ms = min(k1, k2)
     bound_ms, bound_by = bound(imgs, 2 * t * gated_pixels(imgs, gate))
+    # with the threshold map every pixel needs its k-th smallest of 2 * t
+    # cells: at least 2 * t - 1 comparisons
+    thr_bound, thr_by = bound(imgs, (2 * t - 1) * imgs.numel(),
+                              with_threshold=True)
+    log(f"cfar OS threshold path bound {thr_bound} ({thr_by}), share "
+        f"{thr_bound / kt}")
     log(f"cfar OS extend rank 10 {tuple(imgs.shape)} ms: mask path {k1} {k2}, "
         f"plain {p1} {p2}; threshold path (selection) {kt}; mask path "
         f"without the gate (every warp on the strip path) {kn}; with a gate "
@@ -528,6 +573,9 @@ def check_os_kernel(stacks):
             "ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound_ms,
             "bound_by": bound_by, "roofline_share": bound_ms / ms,
             "library_ms": lib, "ms_with_threshold": kt,
+            "bound_ms_with_threshold": thr_bound,
+            "bound_by_with_threshold": thr_by,
+            "roofline_share_with_threshold": thr_bound / kt,
             "library_call": "torch.kthvalue on the window stack, k-th "
                             "smallest only"}
 
@@ -842,6 +890,7 @@ def run_dual_lane(dev, entry) -> int:
     returns the lane's sum-kernel launches of one replay."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from sonar_slam_torch.io.simulate import simulate_bag
     from sonar_slam_torch.kernels import cfar_cuda
     from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_plain
@@ -927,13 +976,25 @@ def run_dual_lane(dev, entry) -> int:
     rows = vimgs.shape[1] - 2 * (t + g)  # strict: the rows that may detect
     ops = 2 * t * int((vimgs[:, t + g:t + g + rows] > gate).sum())
     vb, vby = bound(vimgs, ops)
+    # the library yardstick at this shape: both window sums of every row
+    # that may detect, by one convolution (strict edge: no padding)
+    hw = t + g
+    weight = torch.zeros((2, 1, 2 * hw + 1, 1), device=dev)
+    weight[0, 0, :t] = 1.0
+    weight[1, 0, hw + g + 1:] = 1.0
+    vstacks = [x[:, None] for x in stacks]
+    lib_dispatch = cuda_time_ms(lambda x: F.conv2d(x, weight), vstacks)
+    lib_ms = queued_ms(lambda x: F.conv2d(x, weight), vstacks)
     log(f"dual lane vertical call ms: by CUDA events {k1} {k2} (paced by the "
         f"host's dispatch), queued behind a sleeping kernel {dev_ms}, plain "
-        f"{p1}; bound {vb} ({vby}); the {vimgs.numel() * 5 / 1e6:.2f} MB stay "
-        f"in L2")
+        f"{p1}; conv2d window sums queued {lib_ms}, by CUDA events "
+        f"{lib_dispatch}; bound {vb} ({vby}); the "
+        f"{vimgs.numel() * 5 / 1e6:.2f} MB stay in L2")
     entry.update(vertical_ms=dev_ms, vertical_dispatch_ms=min(k1, k2),
                  vertical_plain_ms=p1, vertical_bound_ms=vb,
-                 vertical_bound_by=vby, vertical_shape=list(vimgs.shape))
+                 vertical_bound_by=vby, vertical_shape=list(vimgs.shape),
+                 vertical_library_ms=lib_ms,
+                 vertical_library_dispatch_ms=lib_dispatch)
 
     # (b) the fusion stage on the golden's JAX inputs
     x0, y0, rs, nx, ny = ref["elevation_spec"]
@@ -965,6 +1026,269 @@ def run_dual_lane(dev, entry) -> int:
         raise RuntimeError(f"dual lane made {launches} CFAR launches, "
                            f"{sum_launches} of the sum kernel; expected 2 "
                            f"(horizontal and vertical), both of it")
+    return sum_launches
+
+
+# phase 11: ROS message definitions and serializers of the BlueROV topics
+# (the reference's raw sensor topics; pings as raw sensor_msgs/Image)
+_HEADER_DEF = "MSG: std_msgs/Header\nuint32 seq\ntime stamp\nstring frame_id\n"
+_SEP = "=" * 80 + "\n"
+IMU_DEF = ("Header header\ngeometry_msgs/Quaternion orientation\n" + _SEP
+           + _HEADER_DEF + _SEP + "MSG: geometry_msgs/Quaternion\n"
+           "float64 x\nfloat64 y\nfloat64 z\nfloat64 w\n")
+DVL_DEF = ("Header header\ngeometry_msgs/Vector3 velocity\nfloat64 altitude\n"
+           + _SEP + _HEADER_DEF + _SEP + "MSG: geometry_msgs/Vector3\n"
+           "float64 x\nfloat64 y\nfloat64 z\n")
+DEPTH_DEF = ("Header header\nfloat64 depth\nfloat64 temperature\n" + _SEP
+             + _HEADER_DEF)
+PING_DEF = ("Header header\nsonar_oculus/OculusFire fire_msg\nint32 ping_id\n"
+            "sensor_msgs/Image ping\nint16[] bearings\nfloat64 range_resolution\n"
+            "uint32 num_ranges\nuint32 num_beams\n" + _SEP + _HEADER_DEF + _SEP
+            + "MSG: sonar_oculus/OculusFire\nHeader header\nuint8 mode\n"
+            "uint8 gamma\nuint8 flags\nfloat64 range\nfloat64 gain\n"
+            "float64 speed_of_sound\nfloat64 salinity\n" + _SEP
+            + "MSG: sensor_msgs/Image\nHeader header\nuint32 height\n"
+            "uint32 width\nstring encoding\nuint8 is_bigendian\nuint32 step\n"
+            "uint8[] data\n")
+
+
+def _stamp(t: float) -> tuple[int, int]:
+    secs = int(t)
+    return secs, int(round((t - secs) * 1e9))
+
+
+def _ser_header(seq: int, t: float, frame: str) -> bytes:
+    import struct
+
+    b = frame.encode()
+    return struct.pack("<III", seq, *_stamp(t)) + struct.pack("<I", len(b)) + b
+
+
+def _ser_ping(seq, t, gamma, img, bearings_cdeg, res):
+    """An OculusPing with a raw 8-bit sensor_msgs/Image payload."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape
+    enc = b"mono8"
+    out = _ser_header(seq, t, "sonar") + _ser_header(seq, t, "sonar")
+    out += struct.pack("<BBB", 2, gamma, 0) + struct.pack("<dddd", 30.0, 20.0,
+                                                          1500.0, 0.0)
+    out += struct.pack("<i", seq) + _ser_header(seq, t, "sonar")
+    out += struct.pack("<II", h, w) + struct.pack("<I", len(enc)) + enc
+    out += struct.pack("<BI", 0, w) + struct.pack("<I", h * w) + img.tobytes()
+    b = np.asarray(bearings_cdeg, "<i2")
+    out += struct.pack("<I", len(b)) + b.tobytes()
+    return out + struct.pack("<dI", res, h) + struct.pack("<I", len(b))
+
+
+def run_bag_seam(dev, work: str) -> int:
+    """Phase 11: a small survey through a genuine lz4 bag, ``cli.convert_bag``
+    and ``cli.replay`` on the card, against ``pipeline.replay`` of the same
+    quantized arrays in process. Returns the CLI run's sum-kernel launches."""
+    import struct
+
+    import numpy as np
+    import torch
+    from sonar_slam_torch.cli import convert_bag
+    from sonar_slam_torch.cli import replay as replay_cli
+    from sonar_slam_torch.io.config import load_feature_config, load_slam_config
+    from sonar_slam_torch.io.rosbag import ROS_TOPICS, _quat_to_rpy, write_bag
+    from sonar_slam_torch.io.simulate import SimConfig, SyntheticBag, simulate_bag
+    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.pipeline import replay
+    from sonar_slam_torch.slam.sonar import SonarGeometry
+
+    # tests/test_torch_cli.py's survey: 13 keyframes and 4 loops
+    sim = SimConfig(duration=40.0, speed=0.5, sonar_rate=1.0, num_ranges=96,
+                    num_bearings=48, loop_radius=2.5, imu_rate=20.0, seed=2)
+    bag = simulate_bag(sim)
+    gamma = 127
+    # the sonar's gamma compression to 8 bits, the wire's quantization
+    x = np.clip(bag.ping_images.astype(np.float64) / 255.0, 0.0, 1.0)
+    imgs_q = np.round(255.0 * x ** (gamma / 255.0)).astype(np.uint8)
+    cdeg = np.round(np.degrees(bag.geometry.bearings) * 100)
+    res = bag.geometry.range_resolution
+    quats = [(0.0, 0.0, float(np.sin(y / 2)), float(np.cos(y / 2)))
+             for y in bag.imu_rpy[:, 2]]
+    msgs = [(0, float(t), _ser_header(k, float(t), "imu")
+             + struct.pack("<dddd", *quats[k]))
+            for k, t in enumerate(bag.imu_time)]
+    msgs += [(1, float(t), _ser_header(k, float(t), "dvl")
+              + struct.pack("<dddd", *map(float, bag.dvl_vel[k]), 5.0))
+             for k, t in enumerate(bag.dvl_time)]
+    msgs += [(2, float(t), _ser_header(k, float(t), "depth")
+              + struct.pack("<dd", float(bag.depth[k]), 20.0))
+             for k, t in enumerate(bag.depth_time)]
+    msgs += [(3, float(t), _ser_ping(k, float(t), gamma, imgs_q[k], cdeg, res))
+             for k, t in enumerate(bag.ping_time)]
+    msgs.sort(key=lambda m: m[1])
+    conns = [{"id": i, "topic": ROS_TOPICS[name], "type": typ, "definition": d}
+             for i, (name, typ, d) in enumerate((
+                 ("imu", "sensor_msgs/Imu", IMU_DEF),
+                 ("dvl", "rti_dvl/DVL", DVL_DEF),
+                 ("depth", "bar30_depth/Depth", DEPTH_DEF),
+                 ("sonar", "sonar_oculus/OculusPing", PING_DEF)))]
+    bag_path = os.path.join(work, "seam.bag")
+    bundle = os.path.join(work, "seam.npz")
+    t0 = time.perf_counter()
+    write_bag(bag_path, conns, msgs, compression="lz4")
+    convert_bag.main([bag_path, "--out", bundle])
+    t_convert = time.perf_counter() - t0
+
+    # the same quantized arrays, in process: stamps as the headers carry
+    # them, the yaw through its quaternion, the pings through the gamma table
+    def stamps(ts):
+        return np.asarray([a + b * 1e-9 for a, b in map(_stamp, map(float, ts))])
+
+    times = {n: stamps(getattr(bag, n)) for n in ("imu_time", "dvl_time",
+                                                   "depth_time", "ping_time")}
+    t_first = min(times["imu_time"].min(), times["dvl_time"].min(),
+                  times["ping_time"].min())
+    rpy = np.asarray([_quat_to_rpy(*q) for q in quats], np.float32)
+    bearings = np.radians(np.asarray(cdeg, np.int16).astype(np.float32) / 100.0)
+    mem = SyntheticBag(
+        **{n: (v - t_first).astype(np.float32) for n, v in times.items()},
+        imu_rpy=rpy, dvl_vel=bag.dvl_vel.astype(np.float32),
+        depth=bag.depth.astype(np.float32),
+        ping_images=convert_bag.gamma_decompress(imgs_q, gamma),
+        true_pose_at_ping=np.zeros((len(bag.ping_time), 3), np.float32),
+        geometry=SonarGeometry(num_ranges=bag.geometry.num_ranges,
+                               num_bearings=len(bearings),
+                               range_resolution=float(res), bearings=bearings),
+        world_points=np.zeros((0, 2), np.float32))
+    with np.load(bundle) as d:
+        for name in ("imu_time", "imu_rpy", "dvl_time", "dvl_vel", "depth_time",
+                     "depth", "ping_time", "ping_images"):
+            if not np.array_equal(d[name], getattr(mem, name)):
+                raise RuntimeError(f"bag seam: the bundle's {name} differs from "
+                                   f"the quantized array")
+        if not np.array_equal(d["bearings"], bearings):
+            raise RuntimeError("bag seam: the bundle's bearings differ")
+
+    torch.cuda.synchronize()
+    cfar_cuda.cfar_detect.launches = 0
+    cfar_cuda.cfar_detect.kernel_launches["sum"] = 0
+    run = replay_cli.main(["--file", bundle, "--out", os.path.join(work, "seam")])
+    launches = cfar_cuda.cfar_detect.launches
+    sum_launches = cfar_cuda.cfar_detect.kernel_launches["sum"]
+    params, dims, _ = load_slam_config(dims_overrides={"max_keyframes": 128},
+                                       device=dev)
+    ref = replay(mem, load_feature_config(max_points=dims.max_points), params,
+                 dims, dev)
+    got = run.result
+    same = (np.array_equal(got.keyframe_ping_idx, ref.keyframe_ping_idx)
+            and np.array_equal(got.trajectory, ref.trajectory)
+            and np.array_equal(got.dense_trajectory, ref.dense_trajectory)
+            and got.carry.num_loops == ref.carry.num_loops
+            and torch.equal(got.carry.points, ref.carry.points))
+    log(f"bag seam: {len(msgs)} messages, lz4 bag {os.path.getsize(bag_path)} "
+        f"bytes, written and converted in {t_convert:.2f} s; cli.replay "
+        f"{got.num_keyframes} keyframes, {got.carry.num_loops} loops, wall "
+        f"{run.wall_s:.2f} s, stages s {json.dumps(got.stage_s)}; in-process "
+        f"replay equal bit for bit: {same}; CFAR launches {launches}, of them "
+        f"the sum kernel {sum_launches}")
+    if not same:
+        raise RuntimeError("bag seam: cli.replay differs from the in-process "
+                           "replay of the quantized arrays")
+    if got.carry.num_loops < 1:
+        raise RuntimeError("bag seam: the survey's loops were not found")
+    if sum_launches < 1 or sum_launches != launches:
+        raise RuntimeError(f"bag seam made {launches} CFAR launches, "
+                           f"{sum_launches} of the sum kernel")
+    return sum_launches
+
+
+def run_cli_full(bag, dev, work: str) -> int:
+    """Phase 12: ``cli.replay`` on phase 4's survey, written as an
+    uncompressed bundle, with the YAML configuration. Returns the run's
+    sum-kernel launches."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.cli import replay as replay_cli
+    from sonar_slam_torch.cli.simulate_bag import write_bundle
+    from sonar_slam_torch.io.state import load_checkpoint
+    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.mapping import (occupancy_grid_method1,
+                                          render_global_logodds)
+    from sonar_slam_torch.pipeline import ate_heading_deg
+    from sonar_slam_torch.slam import slam_init
+
+    bundle = os.path.join(work, "full.npz")
+    out = os.path.join(work, "full")
+    t0 = time.perf_counter()
+    write_bundle(bundle, bag, compressed=False)
+    t_write = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfar_cuda.cfar_detect.launches = 0
+    cfar_cuda.cfar_detect.kernel_launches["sum"] = 0
+    t0 = time.perf_counter()
+    run = replay_cli.main(["--file", bundle, "--max-keyframes", "128",
+                           "--intensity", "--save-submaps", "--out", out])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = cfar_cuda.cfar_detect.launches
+    sum_launches = cfar_cuda.cfar_detect.kernel_launches["sum"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = run.result
+
+    # slam_carry.npz, leaf for leaf
+    back = load_checkpoint(os.path.join(out, "slam_carry.npz"),
+                           slam_init(run.dims, dev))
+    def same(x, y):
+        if isinstance(x, tuple):  # the carry and its graph
+            return all(same(u, v) for u, v in zip(x, y))
+        if isinstance(x, torch.Tensor):
+            return (x.dtype == y.dtype and x.device == y.device
+                    and torch.equal(x, y))
+        return type(x) is type(y) and x == y
+
+    leaves_equal = same(back, res.carry)
+    # occupancy.npz against the method-1 map of a full repaint
+    with np.load(os.path.join(out, "occupancy.npz")) as d:
+        occ, inten = d["occ"], d["intensity"]
+    st = run.mapping
+    full = occupancy_grid_method1(
+        st._replace(grid=render_global_logodds(st, run.model)),
+        run.model).cpu().numpy()
+    observed = int((occ != 50).sum())
+    repaint_diff = int((full != occ).sum())
+    with np.load(os.path.join(out, "trajectory.npz")) as d:
+        states = d["states"]
+    states_ok = (states.dtype == np.dtype(JAX_STATE_DTYPE)
+                 and len(states) == res.num_keyframes
+                 and np.isfinite(states["cov"]).all())
+    truth = bag.true_pose_at_ping[res.keyframe_ping_idx]
+    ate_deg = ate_heading_deg(res.trajectory, truth)
+    nl = res.carry.num_loops
+    log(f"cli.replay full width: {res.num_keyframes} keyframes, {nl} loops, "
+        f"ATE {run.ate_m:.4f} m / {ate_deg:.3f} deg, wall_s {run.wall_s:.2f}, "
+        f"stages s {json.dumps(res.stage_s)}, mapping loop {run.mapping_s:.3f} "
+        f"s, whole CLI {total:.2f} s (bundle of {os.path.getsize(bundle) / 1e9:.2f} "
+        f"GB written in {t_write:.2f} s), peak memory {peak / 2**20:.1f} MiB, "
+        f"CFAR launches {launches}, of them the sum kernel {sum_launches}")
+    log(f"cli.replay full width: carry reloaded leaf for leaf: {leaves_equal}; "
+        f"states {states.dtype}, {len(states)} rows, as the JAX package's: "
+        f"{states_ok}; occ against a full repaint: {repaint_diff} of "
+        f"{observed} observed cells differ (allowed share {CLI_REPAINT_SHARE}); "
+        f"intensity cells observed {int((inten >= 0).sum())}")
+    if not np.isfinite(res.trajectory).all():
+        raise RuntimeError("cli.replay: trajectory not finite")
+    if sum_launches < 1 or sum_launches != launches:
+        raise RuntimeError(f"cli.replay made {launches} CFAR launches, "
+                           f"{sum_launches} of the sum kernel")
+    if not leaves_equal:
+        raise RuntimeError("cli.replay: slam_carry.npz does not reload equal")
+    if not states_ok:
+        raise RuntimeError("cli.replay: states array has the wrong layout")
+    if repaint_diff > CLI_REPAINT_SHARE * observed:
+        raise RuntimeError("cli.replay: occ differs from a full repaint")
+    got = (res.num_keyframes, nl, round(run.ate_m, 4), round(ate_deg, 3))
+    if got != CLI_EXPECTED:
+        raise RuntimeError(f"cli.replay: (keyframes, loops, ATE m, ATE deg) "
+                           f"{got}, expected {CLI_EXPECTED}")
     return sum_launches
 
 
@@ -1063,11 +1387,21 @@ def main() -> int:
     for frontend in ("dr_gyro", "kalman"):
         by_path[frontend] = run_frontend_path(bag, dev, frontend)
     kalman = time_kalman_scan(bag, dev)
-    del bag
     torch.cuda.empty_cache()
 
     # 10) bench.py's dual-sonar lane
     by_path["dual"] = run_dual_lane(dev, entry)
+
+    # 11-12) the command-line path: a bag through convert_bag and the
+    # replay CLI, then the CLI on phase 4's survey
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        by_path["cli_bag_seam"] = run_bag_seam(dev, work)
+        by_path["cli_full"] = run_cli_full(bag, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del bag
+    torch.cuda.empty_cache()
     entry["launches_by_path"] = by_path
 
     log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "

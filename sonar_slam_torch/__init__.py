@@ -5,13 +5,19 @@ A port of ``sonar_slam_tpu`` (JAX/Pallas), which stays beside it as the
 reference; no module here imports JAX. The layout mirrors the reference, so
 each module's counterpart has the same path:
 
-  kernels/     CFAR detectors: plain PyTorch versions and the CUDA kernel
+  kernels/     CFAR detectors: plain PyTorch versions and the CUDA kernels
   geometry/    SE(2) pose algebra and the pose3 helpers
   cloud/       masked point-cloud ops and batched ICP
-  estimators/  dead reckoning
+  estimators/  dead reckoning, the FOG gyro and the Kalman filter
   graph/       SE(2) Gauss-Newton smoother and PCM
-  slam/        sonar geometry, feature front end, scan matching, SLAM core
-  io/          stream alignment and the synthetic bag simulator
+  slam/        sonar geometry, feature front end, scan matching, SLAM core,
+               loop refinement, dual sonar and the services
+  mapping/     log-odds occupancy mapping and the map metrics
+  io/          stream alignment, the synthetic bag simulator, the YAML
+               loaders, checkpoints, and the ROS bag reader with its LZ4 codec
+  utils/       span timing and profiling, logging, the stream registry, viz
+  cli/         ``python -m sonar_slam_torch.cli.{replay,convert_bag,simulate_bag}``
+  config/      the YAML configuration files
   pipeline.py  end-to-end replay on one device
   convert.py   the reference's configuration and state -> the port's
 

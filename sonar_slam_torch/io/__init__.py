@@ -1,4 +1,7 @@
-"""Host-side data: stream alignment and the synthetic bag simulator."""
+"""Host-side data: stream alignment and the synthetic bag simulator. The
+submodules ``config`` (the YAML loaders), ``state`` (state export and
+checkpoints), ``rosbag`` and ``lz4`` (the ROS bag reader) are imported by
+name."""
 
 from .dataset import (
     DRTickBundle,

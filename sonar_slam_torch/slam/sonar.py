@@ -4,20 +4,22 @@ Counterpart of ``sonar_slam_tpu/slam/sonar.py``: ``SonarGeometry`` (numpy
 tables, so the simulator and the feature front end can build them on any
 host) and the image ops on torch tensors: the polar-to-Cartesian remap as a
 precomputed gather, the gamma curves, Wiener deconvolution with the measured
-Oculus bearing PSF (``torch.fft``) and the field-of-view test. The fire
-message decoder and ``SonarGeometry.from_ping`` belong to the bag reader,
-which is not ported.
+Oculus bearing PSF (``torch.fft``) and the field-of-view test; and for the
+bag reader, the fire-message decoder (``OculusFireMsg``) and
+``SonarGeometry.from_ping``.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 OCULUS_VERTICAL_APERTURE = {1: np.deg2rad(20.0), 2: np.deg2rad(12.0)}
+OCULUS_PART_NUMBER = {1042: "M1200d", 1032: "M750d"}
 
 _PSF_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -32,6 +34,76 @@ def oculus_psf() -> np.ndarray:
     if _psf_cache is None:
         _psf_cache = np.load(_PSF_PATH).astype(np.float32)
     return _psf_cache
+
+
+class OculusFireMsg(NamedTuple):
+    """A decoded Oculus fire message. ``gamma`` is the raw byte (0 or 0xff
+    = 1.0, 127 = 0.5), the value ``decompress_gamma`` expects;
+    ``gamma_normalized`` is ``gamma / 255``."""
+
+    mode: int  # 1 = low frequency (wide), 2 = high frequency (narrow)
+    gamma: int  # raw gamma-correction byte
+    flags: int
+    range: float  # range demand: percent or meters, per flag bit 0
+    gain: float
+    speed_of_sound: float  # m/s; 0 = sonar-internal calc from salinity
+    salinity: float  # ppt; 0 = fresh, 35 = salt water
+
+    @property
+    def range_in_meters(self) -> bool:
+        return bool(self.flags & 0x01)
+
+    @property
+    def data_is_16bit(self) -> bool:
+        return bool(self.flags & 0x02)
+
+    @property
+    def sends_gain(self) -> bool:
+        return bool(self.flags & 0x04)
+
+    @property
+    def simple_return(self) -> bool:
+        return bool(self.flags & 0x08)
+
+    @property
+    def gain_assist(self) -> bool:
+        return bool(self.flags & 0x10)
+
+    @property
+    def low_power(self) -> bool:
+        return bool(self.flags & 0x20)
+
+    @property
+    def gamma_normalized(self) -> float:
+        return self.gamma / 255.0
+
+    def effective_speed_of_sound(self, temperature_c: float = 10.0,
+                                 depth_m: float = 10.0) -> float:
+        """The speed of sound in effect: the demanded value, or, when the
+        message demands 0, the sonar's own estimate from salinity
+        (Mackenzie's nine-term equation, JASA 1981)."""
+        if self.speed_of_sound > 0:
+            return float(self.speed_of_sound)
+        t, s, d = temperature_c, self.salinity, depth_m
+        return (
+            1448.96 + 4.591 * t - 5.304e-2 * t**2 + 2.374e-4 * t**3
+            + 1.340 * (s - 35) + 1.630e-2 * d + 1.675e-7 * d**2
+            - 1.025e-2 * t * (s - 35) - 7.139e-13 * t * d**3
+        )
+
+    @staticmethod
+    def decode(msg: dict) -> "OculusFireMsg":
+        """From a ``sonar_oculus/OculusFire`` message dict as ``io.rosbag``
+        decodes it, keeping the raw gamma byte."""
+        return OculusFireMsg(
+            mode=int(msg.get("mode", 1)),
+            gamma=int(msg.get("gamma", 0)),
+            flags=int(msg.get("flags", 0)),
+            range=float(msg.get("range", 0.0)),
+            gain=float(msg.get("gain", 0.0)),
+            speed_of_sound=float(msg.get("speed_of_sound", 0.0)),
+            salinity=float(msg.get("salinity", 0.0)),
+        )
 
 
 @dataclass(frozen=True)
@@ -88,6 +160,27 @@ class SonarGeometry:
         f = self._interp("c2b", np.arange(self.num_bearings, dtype=np.float64),
                          np.asarray(self.bearings, np.float64))
         return np.asarray(f(cols), np.float32)
+
+    @staticmethod
+    def from_ping(ping: dict) -> "tuple[SonarGeometry, OculusFireMsg]":
+        """Geometry and fire message of a decoded ``sonar_oculus/OculusPing``
+        dict: bearings arrive as int16 hundredths of a degree, the model
+        from ``part_number`` (absent on old bags: M750d), the vertical
+        aperture from the fire message's frequency mode."""
+        fire = OculusFireMsg.decode(ping.get("fire_msg", {}))
+        part = int(ping.get("part_number", 1032))
+        bearings = np.deg2rad(
+            np.asarray(ping["bearings"], np.float32) / 100.0).astype(np.float32)
+        geom = SonarGeometry(
+            num_ranges=int(ping["num_ranges"]),
+            num_bearings=len(bearings),
+            range_resolution=float(ping["range_resolution"]),
+            bearings=bearings,
+            model=OCULUS_PART_NUMBER.get(part, "M750d"),
+            vertical_aperture=float(
+                OCULUS_VERTICAL_APERTURE.get(fire.mode, np.deg2rad(20.0))),
+        )
+        return geom, fire
 
     @staticmethod
     def make(

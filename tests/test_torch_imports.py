@@ -1,7 +1,8 @@
 """No module of sonar_slam_torch, and not chip_smoke.py, imports JAX or the
 JAX package: a fresh interpreter with those imports blocked imports every
-module of the port and chip_smoke.py. None of them loads PyYAML either (the
-card's machine need not have it)."""
+module of the port and chip_smoke.py. None of them loads PyYAML, matplotlib
+or PIL either (the card's machine need not have them), and neither does a
+whole run of ``cli.replay`` on the CPU."""
 
 import os
 import subprocess
@@ -28,7 +29,8 @@ names = ["sonar_slam_torch"] + [
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 added = set(sys.modules) - before
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu", "yaml")
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu", "yaml",
+                                    "matplotlib", "PIL")
                for m in added), sorted(added)
 assert "jax" not in sys.modules or "jax" in before
 print(" ".join(names))
@@ -44,5 +46,45 @@ def test_port_imports_no_jax():
     assert len(names) >= 29
     for new in ("slam.refine", "mapping", "mapping.occupancy",
                 "mapping.metrics", "estimators.gyro", "estimators.kalman",
-                "slam.dual_sonar", "slam.services"):
+                "slam.dual_sonar", "slam.services", "io.config", "io.state",
+                "io.lz4", "io.rosbag", "utils", "utils.logging",
+                "utils.streams", "utils.timing", "utils.profile", "utils.viz",
+                "cli", "cli.replay", "cli.convert_bag", "cli.simulate_bag"):
         assert "sonar_slam_torch." + new in names, new
+
+
+_CLI_SCRIPT = r"""
+import importlib.abc, os, sys
+sys.path.insert(0, {root!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+from sonar_slam_torch.cli import replay, simulate_bag
+from sonar_slam_torch.io.simulate import SimConfig, simulate_bag as simulate
+
+out = {out!r}
+simulate_bag.write_bundle(os.path.join(out, "tiny.npz"), simulate(SimConfig(
+    duration=10.0, speed=0.5, sonar_rate=1.0, num_ranges=64, num_bearings=32,
+    loop_radius=2.5, imu_rate=10.0)))
+run = replay.main(["--file", os.path.join(out, "tiny.npz"), "--cpu",
+                   "--out", out, "--intensity", "--save-submaps"])
+assert run.result.num_keyframes >= 2, run.result.num_keyframes
+present = sorted(m for m in ("jax", "yaml", "matplotlib", "PIL")
+                 if m in sys.modules)
+print("present:", present)
+"""
+
+
+def test_cli_replay_loads_no_jax_yaml_matplotlib_or_pil(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_SCRIPT.format(root=ROOT, out=str(tmp_path))],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "present: []"
+    for name in ("trajectory.npz", "slam_carry.npz", "occupancy.npz"):
+        assert (tmp_path / name).exists(), name
