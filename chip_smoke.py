@@ -75,7 +75,16 @@ the script exits non-zero without printing the result line:
    just before. Checks the sum kernel's launches, ``slam_carry.npz``
    reloaded leaf for leaf, ``occupancy.npz`` against a full repaint, the
    ``states`` dtype, and the keyframes, loops and ATE below, exactly; see
-   ``run_cli_full``.
+   ``run_cli_full``;
+13. the ``parallel/`` entry points, each with the launch counters reset just
+   before: (a) ``cli.sweep --simulate --lanes 8`` (one CFAR launch for the
+   whole sweep; lanes 0 and 7 bit for bit against a lone ``slam_scan`` of
+   their params), (b) ``cli.two_robot_demo`` (one launch a robot), (c)
+   ``cli.sharded_replay --max-keyframes 1024 --check --duration 60`` (the
+   replay at capacity 1024 against capacity 128; one launch a replay), each
+   with its
+   wall time and peak memory, and the keyframes, loops and ATE below,
+   exactly; see ``run_sweep``, ``run_two_robot`` and ``run_sharded``.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -152,6 +161,22 @@ CLI_EXPECTED = (73, 30, 0.2615, 0.652)
 # reciprocal in the other; on the CPU none of 30,444 and 6 of 31,136
 # differ, tests/test_torch_cli.py and tests/test_torch_occupancy.py)
 CLI_REPAINT_SHARE = 0.002
+# phase 13: the port's own first results on an H100 80GB HBM3 (700 W), as for
+# phases 4 and 12 (no JAX run of these on a card exists; on the CPU the three
+# CLIs are held to the JAX scripts at shorter durations by
+# tests/test_torch_{parallel,multi_robot,sharded_replay}.py): the sweep's
+# (keyframes, loops per lane, best ATE m), the two-robot demo's (keyframes,
+# loops, proposals, PCM accepts, clique size, merged ATE m rounded to 0.1
+# mm) and the large-capacity replay's (keyframes, loops, ATE m)
+SWEEP_LANES = 8
+SWEEP_EXPECTED = (19, [6, 6, 6, 6, 8, 8, 8, 8], 0.3014)
+TWO_ROBOT_EXPECTED = ([18, 19], [9, 4], 5, 5, 5, 0.0568)
+SHARDED_EXPECTED = (13, 4, 0.0496)
+# phase 13c replays a 60 s survey: on the card the 90 s default's loops
+# are ill-conditioned in the capacity (K 1024 closes 9 loops, K 128 eight;
+# python tests/test_torch_sharded_replay.py cuda), so --check would fail
+# there; at 60 s the two capacities agree within 1.9e-6 m
+SHARDED_DURATION = "60"
 # the JAX package's state array layout (sonar_slam_tpu/io/state.py)
 JAX_STATE_DTYPE = [("time", "<f8"), ("pose", "<f4", (3,)),
                    ("dr_pose3", "<f4", (6,)), ("cov", "<f4", (9,))]
@@ -1292,6 +1317,129 @@ def run_cli_full(bag, dev, work: str) -> int:
     return sum_launches
 
 
+def _counted(run):
+    """``run()`` with the CFAR launch counters reset just before: (its
+    result, its seconds ended by a device sync, its peak device MiB, the
+    launches by kernel)."""
+    import torch
+    from sonar_slam_torch.kernels import cfar_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfar_cuda.cfar_detect.launches = 0
+    for k in cfar_cuda.cfar_detect.kernel_launches:
+        cfar_cuda.cfar_detect.kernel_launches[k] = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = dict(cfar_cuda.cfar_detect.kernel_launches)
+    if sum(launches.values()) != cfar_cuda.cfar_detect.launches:
+        raise RuntimeError("CFAR launch counters disagree")
+    return out, took, torch.cuda.max_memory_allocated() / 2**20, launches
+
+
+def _check_pin(name: str, got, expected):
+    log(f"{name}: {got}, expected {expected}")
+    if got != expected:
+        raise RuntimeError(f"{name}: {got}, expected {expected}")
+
+
+def _bit_equal(x, y) -> bool:
+    """Equal structure and every leaf equal bit for bit with its dtype (a
+    host int against an int64 0-d tensor)."""
+    import torch
+
+    if isinstance(x, tuple):
+        return all(_bit_equal(u, v) for u, v in zip(x, y))
+    if x is None or y is None:
+        return x is None and y is None
+    u, v = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+    return u.dtype == v.dtype and torch.equal(u, v)
+
+
+def _lane(tree, i):
+    return type(tree)(*(_lane(x, i) if isinstance(x, tuple) else
+                        None if x is None else x[i] for x in tree))
+
+
+def run_sweep(dev) -> dict:
+    """Phase 13a: ``cli.sweep --simulate --lanes 8``. Returns its launches by
+    kernel."""
+    import numpy as np
+    from sonar_slam_torch.cli import sweep as sweep_cli
+    from sonar_slam_torch.parallel.sweep import lane_params
+    from sonar_slam_torch.slam import slam_scan
+
+    run, took, peak, launches = _counted(lambda: sweep_cli.main(
+        ["--simulate", "--lanes", str(SWEEP_LANES)]))
+    rep = run.report
+    log(f"cli.sweep --lanes {SWEEP_LANES}: whole CLI {took:.2f} s, peak memory "
+        f"{peak:.1f} MiB, CFAR launches {launches}")
+    for i in (0, SWEEP_LANES - 1):
+        t0 = time.perf_counter()
+        c1, _ = slam_scan(run.frames, lane_params(run.params, i), run.dims)
+        same = _bit_equal(_lane(run.carry, i), c1)
+        log(f"cli.sweep lane {i} against a lone slam_scan "
+            f"({time.perf_counter() - t0:.2f} s): bit for bit {same}")
+        if not same:
+            raise RuntimeError(f"cli.sweep: lane {i} differs from a lone scan")
+    if not np.isfinite(run.carry.poses.cpu().numpy()).all():
+        raise RuntimeError("cli.sweep: poses not finite")
+    if launches["sum"] != 1 or sum(launches.values()) != 1:
+        raise RuntimeError(f"cli.sweep made CFAR launches {launches}, expected "
+                           "one of the sum kernel")
+    _check_pin("cli.sweep (keyframes, loops per lane, best ATE m)",
+               (rep["keyframes"], rep["loops_per_lane"], rep["best_ate_m"]),
+               SWEEP_EXPECTED)
+    return launches
+
+
+def run_two_robot(dev) -> dict:
+    """Phase 13b: ``cli.two_robot_demo`` at its default 90 s. Returns its
+    launches by kernel."""
+    import numpy as np
+    from sonar_slam_torch.cli import two_robot_demo
+
+    run, took, peak, launches = _counted(lambda: two_robot_demo.main([]))
+    log(f"cli.two_robot_demo: whole CLI {took:.2f} s, peak memory {peak:.1f} "
+        f"MiB, CFAR launches {launches}")
+    if not np.isfinite(run.merged_poses).all():
+        raise RuntimeError("cli.two_robot_demo: merged poses not finite")
+    if launches["sum"] != 2 or sum(launches.values()) != 2:
+        raise RuntimeError(f"cli.two_robot_demo made CFAR launches {launches}, "
+                           "expected two of the sum kernel")
+    _check_pin("cli.two_robot_demo (keyframes, loops, proposals, PCM accepts, "
+               "clique, merged ATE m)",
+               (run.keyframes, run.loops, run.proposals, run.accepted,
+                run.clique, round(run.ate_joint_m, 4)), TWO_ROBOT_EXPECTED)
+    return launches
+
+
+def run_sharded(dev) -> dict:
+    """Phase 13c: ``cli.sharded_replay --max-keyframes 1024 --check
+    --duration 60``. Returns its launches by kernel."""
+    from sonar_slam_torch.cli import sharded_replay
+
+    run, took, _, launches = _counted(lambda: sharded_replay.main(
+        ["--max-keyframes", "1024", "--check", "--duration",
+         SHARDED_DURATION]))
+    res, ref = run.result, run.check
+    log(f"cli.sharded_replay: whole CLI {took:.2f} s; K "
+        f"{res.carry.poses.shape[0]} wall {run.wall_s:.2f} s, peak {run.peak_mib:.1f} MiB, stages s "
+        f"{json.dumps(res.stage_s)}; K {sharded_replay.CHECK_KEYFRAMES} wall "
+        f"{ref.wall_s:.2f} s, peak {ref.peak_mib:.1f} MiB, stages s "
+        f"{json.dumps(ref.result.stage_s)}; max |dpose| {run.max_dpose:.3e}; "
+        f"CFAR launches {launches}")
+    if launches["sum"] != 2 or sum(launches.values()) != 2:
+        raise RuntimeError(f"cli.sharded_replay made CFAR launches {launches}, "
+                           "expected two of the sum kernel")
+    _check_pin("cli.sharded_replay (keyframes, loops, ATE m)",
+               (res.num_keyframes, res.carry.num_loops, round(run.ate_m, 4)),
+               SHARDED_EXPECTED)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1402,7 +1550,20 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     del bag
     torch.cuda.empty_cache()
+
+    # 13) the parallel/ entry points: the sweep, the two-robot merge and the
+    # replay at keyframe capacity 1024
+    t13 = time.perf_counter()
+    by_path_os = {"os": entry_os["launches"]}
+    for name, run in (("sweep", run_sweep), ("two_robot", run_two_robot),
+                      ("sharded_replay", run_sharded)):
+        launches = run(dev)
+        by_path[name] = launches["sum"]
+        by_path_os[name] = launches["os_mask"] + launches["os_select"]
+        torch.cuda.empty_cache()
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
     entry["launches_by_path"] = by_path
+    entry_os["launches_by_path"] = by_path_os
 
     log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "
         f"(from the build)")

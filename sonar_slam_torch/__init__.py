@@ -15,8 +15,11 @@ each module's counterpart has the same path:
   mapping/     log-odds occupancy mapping and the map metrics
   io/          stream alignment, the synthetic bag simulator, the YAML
                loaders, checkpoints, and the ROS bag reader with its LZ4 codec
+  parallel/    config sweeps, the keyframe-axis NSSM reductions and the
+               multi-robot merge (lanes and robots as loops on one device)
   utils/       span timing and profiling, logging, the stream registry, viz
-  cli/         ``python -m sonar_slam_torch.cli.{replay,convert_bag,simulate_bag}``
+  cli/         ``python -m sonar_slam_torch.cli.<name>``: replay, convert_bag,
+               simulate_bag, sweep, two_robot_demo, sharded_replay
   config/      the YAML configuration files
   pipeline.py  end-to-end replay on one device
   convert.py   the reference's configuration and state -> the port's

@@ -29,7 +29,6 @@ import argparse
 import dataclasses
 import json
 import os
-import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +36,7 @@ import torch
 
 from ..io.simulate import SimConfig, SyntheticBag, simulate_bag
 from ..slam.sonar import SonarGeometry
+from . import device_from_args
 
 
 class ReplayRun(NamedTuple):
@@ -123,13 +123,7 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> ReplayRun:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.cpu:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
-        sys.exit("no CUDA device: the replay runs on a card; pass --cpu to "
-                 "run it on the CPU")
+    device = device_from_args(args.cpu, "replay")
 
     from ..io.config import load_feature_config, load_slam_config
     from ..io.state import get_states, save_checkpoint

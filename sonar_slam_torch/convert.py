@@ -3,7 +3,8 @@
 The system has no weights: its state is its configuration (``SlamDims``,
 ``SlamParams``, ``RefineParams``, ``FeatureConfig``, ``ICPConfig``,
 ``DRConfig``, ``GyroConfig``, ``KalmanConfig``) and, mid-run, a
-``SlamCarry``. Each function here takes the JAX package's object with its
+``SlamCarry`` (with its ``GraphState``) or a multi-robot
+``KeyframeSummary``. Each function here takes the JAX package's object with its
 arrays already turned into numpy arrays (``np.asarray`` on every leaf) and
 its other values as plain Python values, and returns the port's equivalent.
 Nothing here imports JAX: the objects are read by field name.
@@ -19,6 +20,7 @@ import torch
 from .cloud import ICPConfig
 from .estimators import DRConfig, GyroConfig, KalmanConfig
 from .graph import GraphState
+from .parallel.multi_robot import KeyframeSummary
 from .slam.core import SlamCarry, SlamDims, SlamParams
 from .slam.frontend import FeatureConfig
 from .slam.refine import RefineParams
@@ -114,7 +116,7 @@ def params_from_reference(params, device) -> SlamParams:
 
 
 def _tensor(v, device):
-    a = np.asarray(v)
+    a = np.array(v)  # a copy: a JAX array's numpy view is read-only
     if a.dtype.kind in "iu":
         a = a.astype(np.int64)
     elif a.dtype.kind == "f":
@@ -130,9 +132,22 @@ def carry_from_reference(carry, device) -> SlamCarry:
         if name in _INT_COUNTERS:
             out[name] = int(np.asarray(src[name]))
         elif name == "graph":
-            g = _fields(src[name])
-            out[name] = GraphState(**{k: _tensor(g[k], device)
-                                      for k in GraphState._fields})
+            out[name] = graph_from_reference(src[name], device)
         else:
             out[name] = _tensor(src[name], device)
     return SlamCarry(**out)
+
+
+def graph_from_reference(graph, device) -> GraphState:
+    """A ``GraphState`` of numpy leaves -> the port's on ``device`` (indices
+    and counts int64, floats float32)."""
+    g = _fields(graph)
+    return GraphState(**{k: _tensor(g[k], device) for k in GraphState._fields})
+
+
+def summary_from_reference(summary, device) -> KeyframeSummary:
+    """A multi-robot ``KeyframeSummary`` of numpy leaves (any leading robot
+    or candidate axes) -> the port's on ``device``."""
+    s = _fields(summary)
+    return KeyframeSummary(**{k: _tensor(s[k], device)
+                              for k in KeyframeSummary._fields})

@@ -1,0 +1,21 @@
+"""Config sweeps, the keyframe-axis reductions and multi-robot merging.
+
+Counterpart of ``sonar_slam_tpu/parallel/``. The JAX package runs sweep
+lanes and robots on the lanes of a device mesh (``vmap``, ``shard_map``,
+``all_gather``). One card has no mesh, and the port's ``slam_scan`` is a
+host loop, so here lanes and robots run one after another on one device,
+and the keyframe axis is one batch:
+
+* ``sweep``: one keyframe stream replayed under many ``SlamParams`` lanes
+  (BASELINE.json configs[4], 64 CFAR/ICP hyperparameter configs); identical
+  lanes give identical results, bit for bit.
+* ``keyframe_shard``: the NSSM gate and the global transform over all
+  keyframes at once.
+* ``multi_robot``: keyframe summaries, inter-robot loop proposals, PCM
+  vetting and the merged pose graph.
+
+``make_config_mesh`` has no counterpart.
+"""
+
+from .sweep import stack_params, sweep_scan
+from .multi_robot import exchange_keyframes, merge_interrobot_factors

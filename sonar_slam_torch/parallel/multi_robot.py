@@ -1,0 +1,188 @@
+"""Multi-robot SLAM: keyframe summaries, inter-robot loops and the merged
+pose graph.
+
+Counterpart of ``sonar_slam_tpu/parallel/multi_robot.py``. The reference
+reserves hooks for multi-robot SLAM (the dormant ``ISAM2Update`` message,
+``rov_id`` frame prefixes); the JAX package maps each robot to a mesh lane
+and exchanges compact keyframe summaries (pose, covariance, downsampled
+cloud) with ``all_gather``. One card has no mesh, so the robots run one
+after another on one device and the "exchange" is the stacked summary
+itself. Inter-robot loop closures then run like NSSM: Sobol global
+initialization and batched ICP, vetted by PCM, merged into one graph.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..cloud import ICPConfig, count_overlap, icp_pairs
+from ..geometry import se2_between, se2_compose, se2_inverse, se2_transform_points
+from ..graph.factor_graph import (add_between, cov_to_sqrt_info, graph_init,
+                                  set_pose_estimate)
+from ..graph.pcm import pcm_select
+from ..slam.core import KeyframeInput, slam_scan
+from ..slam.scan_matching import global_initialize
+from .sweep import stack_lanes
+
+
+class KeyframeSummary(NamedTuple):
+    """The ISAM2Update-analog wire format (one keyframe per robot)."""
+
+    robot_id: torch.Tensor  # int
+    key: torch.Tensor  # int keyframe index on its owner
+    pose: torch.Tensor  # (3,)
+    cov: torch.Tensor  # (3, 3)
+    points: torch.Tensor  # (N, 2) downsampled local cloud
+    pmask: torch.Tensor  # (N,)
+
+
+def exchange_keyframes(summary: KeyframeSummary) -> KeyframeSummary:
+    """Every robot's latest keyframe summary, gathered: on one device the
+    gathered table (R, ...) is the stacked summary itself, returned as is."""
+    return summary
+
+
+def merge_interrobot_factors(own: KeyframeSummary, gathered: KeyframeSummary,
+                             point_noise: float = 0.5, min_overlap: int = 30,
+                             icp_config: ICPConfig = ICPConfig()):
+    """Match our submap against every gathered neighbor submap, in one ICP
+    batch over the R neighbours.
+
+    Returns per-neighbor (transform (R, 3), ok (R,), overlap (R,)): candidate
+    BetweenFactor measurements own.key -> neighbor.key, for robots != self.
+    """
+    R = gathered.pose.shape[0]
+    guess = se2_between(own.pose, gathered.pose)
+    tgt = own.points.expand(R, -1, -1)
+    tmask = own.pmask.expand(R, -1)
+    res = icp_pairs(gathered.points, gathered.pmask, tgt, tmask, guess,
+                    icp_config)
+    # overlap evaluated after registration, as in SLAM.get_overlap
+    moved = se2_transform_points(gathered.points, res.pose)
+    ov = count_overlap(moved, gathered.pmask, tgt, tmask, point_noise)
+    ok = res.ok & (ov >= min_overlap) & (gathered.robot_id != own.robot_id)
+    return res.pose, ok, ov
+
+
+# ----------------------------------------------------------------------
+# end-to-end two-robot merge: propose -> PCM-vet -> insert -> optimize
+# ----------------------------------------------------------------------
+
+
+def multi_robot_scan(frames_stacked: KeyframeInput, params, dims):
+    """Run each robot's full SLAM scan, one robot after another.
+
+    ``frames_stacked``: a KeyframeInput with a leading robot axis. Each
+    robot runs the complete SSM/NSSM/PCM scan independently (robots don't
+    communicate during the survey; exchange happens afterwards). Returns
+    (carries, outputs) stacked on the robot axis, as ``sweep_scan`` stacks
+    its lanes."""
+    R = frames_stacked.points.shape[0]
+    runs = [slam_scan(KeyframeInput(*(None if x is None else x[r]
+                                      for x in frames_stacked)), params, dims)
+            for r in range(R)]
+    dev = frames_stacked.points.device
+    return (stack_lanes([c for c, _ in runs], dev),
+            stack_lanes([o for _, o in runs], dev))
+
+
+def propose_interrobot_loops(own: KeyframeSummary, other: KeyframeSummary,
+                             sobol_samples: torch.Tensor, bounds: torch.Tensor,
+                             point_noise: float = 0.5, min_overlap: int = 30,
+                             icp_config: ICPConfig = ICPConfig()):
+    """All-pairs inter-robot loop proposal.
+
+    ``own`` holds robot A's P candidate keyframes, ``other`` robot B's Q.
+    For every (a, b) pair, an NSSM-style global init (a Sobol search of
+    ``sobol_samples`` (S, 3) within +-``bounds`` (3,) around the
+    shared-world-frame relative pose, one guess) then ICP, all P·Q
+    registrations in one batch. Returns per-pair (tf (P, Q, 3): measurement
+    a-local -> b, ok (P, Q), overlap (P, Q))."""
+    P, Q = own.pose.shape[0], other.pose.shape[0]
+    guesses = []
+    for a in range(P):
+        for b in range(Q):
+            gi = global_initialize(
+                other.points[b], other.pmask[b], own.points[a], own.pmask[a],
+                other.pose[b], own.pose[a], bounds, sobol_samples,
+                point_noise, 1)
+            guesses.append(gi.guesses_vs(own.pose[a])[0])
+    src = other.points.repeat(P, 1, 1)
+    smask = other.pmask.repeat(P, 1)
+    tgt = own.points.repeat_interleave(Q, dim=0)
+    tmask = own.pmask.repeat_interleave(Q, dim=0)
+    res = icp_pairs(src, smask, tgt, tmask, torch.stack(guesses), icp_config)
+    moved = se2_transform_points(src, res.pose)
+    ov = count_overlap(moved, smask, tgt, tmask, point_noise)
+    ok = res.ok & (ov >= min_overlap)
+    return res.pose.reshape(P, Q, 3), ok.reshape(P, Q), ov.reshape(P, Q)
+
+
+def vet_interrobot_loops(a_poses, b_poses, tfs, covs, valid, min_pcm: int = 2):
+    """PCM over inter-robot proposals: a_poses (Q, 3) robot A's pose of each
+    proposal (A frame), b_poses (Q, 3) robot B's (B frame), tfs (Q, 3) the
+    measured a-local -> b transforms, covs (Q, 3, 3), valid (Q,). The
+    consistency cycle only uses relative poses within each robot, so each
+    robot's poses in its own frame compose correctly. Returns (accept (Q,),
+    clique size)."""
+    return pcm_select(b_poses, a_poses, tfs, covs, valid, min_pcm)
+
+
+def merge_pose_graphs(graph_a, nk_a: int, graph_b, nk_b: int, a_keys, b_keys,
+                      tfs, covs, accept, merged_config, deployment_z=None,
+                      deployment_sqrt_info=None):
+    """Merge two robots' pose graphs into one (B keys offset by ``nk_a``).
+
+    a_keys, b_keys (Q,): each accepted proposal's keyframe on robot A and
+    on robot B; tfs (Q, 3) the measured a-local -> b transforms; covs (Q, 3,
+    3); accept (Q,) from ``vet_interrobot_loops``. Robot A keeps its prior
+    (the gauge anchor); robot B's own prior is dropped: B is anchored
+    through the accepted inter-robot factors, plus optionally a between
+    factor ``deployment_z`` (3,) on the two first keyframes, the known
+    relative deployment. B's initial values are re-expressed in A's frame
+    through the first accepted proposal. Host-side assembly on graph A's
+    device; returns an optimizable GraphState."""
+    dev = graph_a.poses.device
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    def host(x):
+        return torch.as_tensor(x).cpu().numpy()
+
+    accept_np = host(accept)
+    if not accept_np.any():
+        raise ValueError("no accepted inter-robot loops to merge on")
+    a_keys, b_keys, tfs, covs = host(a_keys), host(b_keys), t(tfs), t(covs)
+    first = int(np.argmax(accept_np))
+    a0, b0 = int(a_keys[first]), int(b_keys[first])
+    # world-A pose of B keyframe b0 = pose_A(a0) ∘ tf0  =>  frame map
+    # T_AB = pose_A(a0) ∘ tf0 ∘ pose_B(b0)⁻¹
+    t_ab = se2_compose(se2_compose(graph_a.poses[a0], tfs[first]),
+                       se2_inverse(graph_b.poses[b0]))
+
+    st = graph_init(merged_config, dev)
+    st = st._replace(prior_pose=graph_a.prior_pose,
+                     prior_sqrt_info=graph_a.prior_sqrt_info)
+    for k in range(nk_a):
+        st = set_pose_estimate(st, k, graph_a.poses[k])
+    for k in range(nk_b):
+        st = set_pose_estimate(st, nk_a + k, se2_compose(t_ab, graph_b.poses[k]))
+
+    # robot A factors verbatim; robot B factors re-indexed by +nk_a
+    for g, off in ((graph_a, 0), (graph_b, nk_a)):
+        for f in range(int(g.num_factors)):
+            st = add_between(st, int(g.f_i[f]) + off, int(g.f_j[f]) + off,
+                             g.f_z[f], g.f_sqrt_info[f],
+                             robust=bool(g.f_robust[f]),
+                             scaled=bool(g.f_scaled[f]))
+    # accepted inter-robot between-factors
+    for q in np.nonzero(accept_np)[0]:
+        st = add_between(st, int(a_keys[q]), nk_a + int(b_keys[q]), tfs[q],
+                         cov_to_sqrt_info(covs[q]))
+    if deployment_z is not None:
+        st = add_between(st, 0, nk_a, t(deployment_z), t(deployment_sqrt_info))
+    return st

@@ -22,6 +22,20 @@ odometry) moves the JAX CLI's own trajectory by 2.6e-3 m, and lands it within
   for at most 0.2% of the observed cells (measured none here; 6 cells of
   31,136 on a 192 x 96 survey, ``test_torch_occupancy.py``'s kind of case).
 
+Where the two part first: given the JAX scan's carry after each keyframe,
+the port's next step lands within 3.1e-6 m of the JAX one up to keyframe 10,
+the first with a loop, where it parts by 8.9e-4 m. The suspect was a tie in
+the sequential match's Sobol costs; there is none to pin: at keyframe 10 the
+SSM's 65 costs are equal in both packages (the best, -69, tied two ways,
+and both take the first, sample 0), and the NSSM's 513 costs are equal but
+for two samples a count apart (points on the ``point_noise`` gate), with
+one best sample, the same in both (277). The step parts in the NSSM's 30
+multi-start ICP runs: 26 agree within 3e-6 m, 4 part by 3.2e-3 to 3.0e-2
+m, and the JAX package's own ICP moves three of those (starts 8, 20 and 25)
+by 3.2e-3 to 5.4e-3 m when their guesses move by 1e-6 (correspondences on
+the trim boundary). ``PYTHONPATH=.:tests python tests/test_torch_cli.py``
+prints this trace.
+
 Both CLIs run at once in subprocesses (about 75-120 s of wall time); the port's
 keeps freed memory in glibc's heap (``MALLOC_MMAP_MAX_=0``), which halves its
 time on the CPU, where the scan's 256 MB temporaries are otherwise mapped
@@ -190,7 +204,9 @@ def test_carry_checkpoint_reloads(runs):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("module", ["replay", "convert_bag", "simulate_bag"])
+@pytest.mark.parametrize("module", ["replay", "convert_bag", "simulate_bag",
+                                    "sweep", "two_robot_demo",
+                                    "sharded_replay"])
 def test_help(module):
     r = subprocess.run([sys.executable, "-m", f"sonar_slam_torch.cli.{module}",
                         "--help"], capture_output=True, text=True, cwd=REPO,
@@ -208,3 +224,90 @@ def test_replay_refuses_to_run_without_a_card(tmp_path):
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr and "--cpu" in r.stderr
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("module", ["sweep", "two_robot_demo",
+                                    "sharded_replay"])
+def test_parallel_clis_refuse_to_run_without_a_card(module):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CLI would run on it")
+    r = subprocess.run([sys.executable, "-m", f"sonar_slam_torch.cli.{module}",
+                        "--duration", "5"],
+                       capture_output=True, text=True, cwd=REPO, timeout=120)
+    assert r.returncode == 1
+    assert "no CUDA device" in r.stderr and "--cpu" in r.stderr
+
+
+def _first_parting_keyframe_probe(path):
+    """Where the two CLIs part on this survey: the JAX scan's carry after
+    every keyframe against the port's step from it, then at the first
+    keyframe that parts by more than 1e-4 m, each Sobol search's cost vector
+    in both packages on the port's inputs (differing samples, the best cost,
+    its ties, the chosen sample) and the multi-start ICP's starts."""
+    import jax
+    import jax.numpy as jnp
+    import sonar_slam_tpu.pipeline as jpipe
+    import sonar_slam_tpu.slam.scan_matching as jsm
+    from sonar_slam_tpu.io.config import load_feature_config, load_slam_config
+
+    from sonar_slam_torch.convert import (carry_from_reference,
+                                          dims_from_reference,
+                                          params_from_reference)
+    from sonar_slam_torch.slam import core as tcore
+    from sonar_slam_torch.slam import scan_matching as tsm
+    from test_torch_multi_robot import multistart_gap, port_frame, step_trace
+
+    jax.config.update("jax_platforms", "cpu")
+    write_bundle(path, simulate_bag(SIM))
+    bag = load_npz_bag(path, 0.0, 0.0)
+    params, dims, _ = load_slam_config(dims_overrides={"max_keyframes": 32})
+    seen = {}
+    orig = jpipe.slam_scan
+
+    def spy(frames, p, d, basis=None):
+        seen["args"] = (frames, basis)
+        return orig(frames, p, d, basis)
+
+    jpipe.slam_scan = spy
+    jpipe.replay(bag, load_feature_config(max_points=dims.max_points), params,
+                 dims)
+    jf, basis = seen["args"]
+    carries, k = step_trace(jf, params, dims, basis)
+    calls = []
+    orig_gi = tcore.global_initialize
+
+    def gi_spy(*a):
+        calls.append(a)
+        return orig_gi(*a)
+
+    tcore.global_initialize = gi_spy
+    try:
+        tcore.keyframe_step(
+            carry_from_reference(carries[k][0], "cpu"), port_frame(jf, k),
+            params_from_reference(jax.tree.map(np.asarray, params), "cpu"),
+            dims_from_reference(dims))
+    finally:
+        tcore.global_initialize = orig_gi
+    for name, a in zip(("SSM", "NSSM"), calls):
+        deltas = torch.cat([torch.zeros(1, 3), (2 * a[7] - 1) * a[6][None]])
+        tc, _ = tsm.match_count_costs(*a[:6], deltas, a[8])
+        jc, _ = jsm.match_count_costs(
+            *(jnp.asarray(x.numpy()) for x in a[:6]), jnp.asarray(deltas.numpy()),
+            jnp.asarray(a[8], jnp.float32))
+        tc, jc = tc.numpy(), np.asarray(jc)
+        diff = np.nonzero(tc != jc)[0]
+        print(f"keyframe {k} {name}: {len(tc)} samples, {len(diff)} costs "
+              f"differ ({[(int(i), float(tc[i]), float(jc[i])) for i in diff]}), "
+              f"best {tc.min()} / JAX {jc.min()}, tied {(tc == tc.min()).sum()} "
+              f"/ {(jc == jc.min()).sum()}, chosen sample "
+              f"{int(np.argsort(tc, kind='stable')[0])} / "
+              f"{int(np.argsort(jc, kind='stable')[0])}", flush=True)
+    multistart_gap(jf, params, dims, carries, k)
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=.:tests python tests/test_torch_cli.py
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _first_parting_keyframe_probe(os.path.join(tmp, "survey.npz"))

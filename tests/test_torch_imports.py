@@ -2,7 +2,8 @@
 JAX package: a fresh interpreter with those imports blocked imports every
 module of the port and chip_smoke.py. None of them loads PyYAML, matplotlib
 or PIL either (the card's machine need not have them), and neither does a
-whole run of ``cli.replay`` on the CPU."""
+whole run of ``cli.replay`` or of ``cli.two_robot_demo`` (without
+``--plot``) on the CPU."""
 
 import os
 import subprocess
@@ -43,13 +44,16 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.strip().splitlines()[-1].split()
-    assert len(names) >= 29
+    assert len(names) >= 59
     for new in ("slam.refine", "mapping", "mapping.occupancy",
                 "mapping.metrics", "estimators.gyro", "estimators.kalman",
                 "slam.dual_sonar", "slam.services", "io.config", "io.state",
                 "io.lz4", "io.rosbag", "utils", "utils.logging",
                 "utils.streams", "utils.timing", "utils.profile", "utils.viz",
-                "cli", "cli.replay", "cli.convert_bag", "cli.simulate_bag"):
+                "cli", "cli.replay", "cli.convert_bag", "cli.simulate_bag",
+                "parallel", "parallel.sweep", "parallel.keyframe_shard",
+                "parallel.multi_robot", "cli.sweep", "cli.two_robot_demo",
+                "cli.sharded_replay"):
         assert "sonar_slam_torch." + new in names, new
 
 
@@ -88,3 +92,33 @@ def test_cli_replay_loads_no_jax_yaml_matplotlib_or_pil(tmp_path):
     assert proc.stdout.strip().splitlines()[-1] == "present: []"
     for name in ("trajectory.npz", "slam_carry.npz", "occupancy.npz"):
         assert (tmp_path / name).exists(), name
+
+
+_TWO_ROBOT_SCRIPT = r"""
+import importlib.abc, sys
+sys.path.insert(0, {root!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+from sonar_slam_torch.cli import two_robot_demo
+
+run = two_robot_demo.main(["--cpu", "--duration", "75"])
+assert run.accepted >= 1, run
+present = sorted(m for m in ("jax", "yaml", "matplotlib", "PIL")
+                 if m in sys.modules)
+print("present:", present)
+"""
+
+
+def test_cli_two_robot_demo_loads_no_jax_yaml_matplotlib_or_pil():
+    proc = subprocess.run(
+        [sys.executable, "-c", _TWO_ROBOT_SCRIPT.format(root=ROOT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "present: []"
