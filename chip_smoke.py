@@ -84,7 +84,18 @@ the script exits non-zero without printing the result line:
    replay at capacity 1024 against capacity 128; one launch a replay), each
    with its
    wall time and peak memory, and the keyframes, loops and ATE below,
-   exactly; see ``run_sweep``, ``run_two_robot`` and ``run_sharded``.
+   exactly; see ``run_sweep``, ``run_two_robot`` and ``run_sharded``;
+14. the accuracy CLIs, each run in process through its ``main`` with the
+   launch counters reset just before, each result pinned exactly: (a)
+   ``cli.multi_seed --full --seeds 1``, bench.py's production SOCA +
+   refinement path at full width (73 keyframes, the sum kernel); (b)
+   ``cli.yscale_lane --seeds 1``, the same on the 20-degree crab survey;
+   (c) ``cli.error_budget``, (d) ``cli.accuracy_sweep`` and (e)
+   ``cli.map_probe`` at the small configuration, then
+   ``cli.frontier_coverage_probe --alg OS`` (the OS mask kernel); (f)
+   ``cli.run_repeats`` with two ``cli.replay`` runs in subprocesses and
+   ``cli.plot_runs.trajectory_spread`` over them, which must be 0.0; see
+   ``run_multi_seed`` to ``run_repeats``.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -136,14 +147,18 @@ SMALL_ATE_BAND_M = 0.02
 # phases 8 and 9: the odometry at the pings against the JAX package's within
 # these (the cumulative sums run in other orders; on the CPU the gaps are
 # 1.1e-4 m / 1.9e-6 rad with dr_gyro and 2.1e-4 m / 3e-8 rad with kalman,
-# tests/test_torch_frontends.py; on an H100 80GB HBM3 at 700 W 9.0e-5 m /
-# 2.9e-6 rad and 2.1e-4 m / 3e-8 rad), and the port's own first result on
-# that card, exactly (keyframes, loops, ATE m and deg, rounded as for phase
-# 4). No JAX run of the full survey through these front ends past the
-# keyframe gate exists, as for phase 4.
+# tests/test_torch_frontends.py; on an H100 80GB HBM3 at 700 W 1.6e-4 m /
+# 6.7e-6 rad and 2.1e-4 m / 3e-8 rad), and the port's own result on that
+# card, exactly (keyframes, loops, ATE m and deg, rounded as for phase 4),
+# the same in two processes since the gyro and Kalman integrals scan rows
+# (tests/test_torch_odometry_cuda.py); with the single-row scans they
+# replaced, one run's gyro odometry came out 1.1e-4 m from JAX's instead of
+# 9.0e-5 m and its dr_gyro ATE 0.0714 m, and kalman gave 0.2357 m / 0.245
+# deg. No JAX run of the full survey through these front
+# ends past the keyframe gate exists, as for phase 4.
 ODO_POS_ATOL_M, ODO_ANG_ATOL = 1e-3, 2e-5
 FRONTEND_EXPECTED = {"dr_gyro": (73, 7, 0.0715, 0.121),
-                     "kalman": (72, 7, 0.2357, 0.245)}
+                     "kalman": (72, 7, 0.2283, 0.251)}
 # phase 10: the card's z RMSE within this of the JAX result's (the port on
 # the CPU lands 0.0 m from it, tests/test_torch_dual_lane.py), and the JAX
 # package's lane on a TPU (BENCH_r05.json), printed for scale only
@@ -177,6 +192,67 @@ SHARDED_EXPECTED = (13, 4, 0.0496)
 # python tests/test_torch_sharded_replay.py cuda), so --check would fail
 # there; at 60 s the two capacities agree within 1.9e-6 m
 SHARDED_DURATION = "60"
+# phase 14: the accuracy CLIs. The pins are the port's own first results on
+# an H100 80GB HBM3 (700 W), exact as printed (the CLIs' own rounding), as for
+# phases 4, 12 and 13: no JAX run of these on a card exists, and the full
+# size is not run on a host CPU. On the CPU the small configurations are
+# held to the JAX scripts by tests/test_torch_{error_budget,multi_seed,
+# accuracy_sweep,map_probes,run_repeats}.py. 14a: cli.multi_seed --full
+# --seeds 1 (bench.py's SOCA + refinement path; the keyframes depend only on
+# dead reckoning); (keyframes, loops, ATE cm, heading deg, loop precision,
+# recall, estimated DVL scale x/y)
+MULTI_SEED_EXPECTED = (73, 94, 4.5, 0.154, 1.0, 0.841, [1.0257, 0.99941])
+# 14b: cli.yscale_lane --seeds 1 (est. scale x/y, x and y error %, loops,
+# ATE cm)
+YSCALE_EXPECTED = ([1.02851, 0.99811], 0.514, 0.27, 69, 5.41)
+# 14c: cli.error_budget (small): the whole report
+ERROR_BUDGET_EXPECTED = {
+    "feature_rms_cm": 10.1, "feature_median_cm": 7.63,
+    "A_full_pipeline": {"ate_cm": 3.16, "dr_ate_cm": 3.68, "keyframes": 19,
+                        "loops": 8},
+    "B_noiseless_sensors": {"ate_cm": 1.62, "dr_ate_cm": 1.33,
+                            "keyframes": 18, "loops": 9},
+    "C_gt_features": {"ate_cm": 2.52, "dr_ate_cm": 3.68, "keyframes": 19,
+                      "loops": 11},
+    "D_noiseless_gt_features": {"ate_cm": 1.46, "dr_ate_cm": 1.33,
+                                "keyframes": 18, "loops": 9}}
+# 14d: cli.accuracy_sweep (small, 1 seed): (label, ATE cm, loops), ranked
+ACCURACY_SWEEP_EXPECTED = [
+    ("baseline r1 (.5/.5/.5)", 3.07, 10), ("agg.25 (.25/.25/.5)", 3.82, 9),
+    ("noise.35 (.25/.25/.35)", 6.01, 9), ("feat.25 (.25/.5/.5)", 6.29, 6),
+    ("fine (.125/.25/.25) 2xpts", 7.64, 11),
+    ("noise.25 (.25/.25/.25)", 8.87, 8), ("no-subbin (.5/.5/.5)", 9.07, 9)]
+# 14e: cli.map_probe (small) and cli.frontier_coverage_probe --alg OS
+# (small): their whole reports
+MAP_PROBE_EXPECTED = {
+    "config": "small", "n_cells": 1709, "n_truth": 988, "precision@0.4": 0.802,
+    "recall@0.4": 0.718, "recall@0.8": 0.747,
+    "d_truth_q_m": {"50": 0.12, "75": 0.83, "90": 5.1, "95": 8.04, "99": 10.41,
+                    "100": 11.24},
+    "d_cell_q_m": {"50": 0.21, "75": 0.36, "90": 0.51, "95": 0.64, "99": 0.9,
+                   "100": 1.1},
+    "d_cell_mean_m": 0.26, "d_truth_mean_m": 1.33, "feat_recall@0.4": 0.892,
+    "d_truth_feat_q_m": {"50": 0.09, "75": 0.18, "90": 0.42, "95": 1.01,
+                         "99": 2.49, "100": 7.76}}
+FRONTIER_OS_EXPECTED = {
+    "config": "small", "max_points": 128, "kf_count": 18,
+    "mean_wedge_truth": 209.5, "mean_occupied_vox": 114.7,
+    "capacity_binding_frac": 0.44, "coverage_A_raw": 0.996,
+    "coverage_B_voxel": 0.995, "coverage_C_final": 0.844, "alg": "OS",
+    "pfa": 0.1, "miss_range_med_m": 29.1, "hit_range_med_m": 16.4,
+    "miss_absbrg_med_deg": 36.6, "hit_absbrg_med_deg": 37.1}
+# 14f: cli.run_repeats with two runs on a 20 s survey of 64 x 32 pings
+REPEAT_RUNS = 2
+# the JAX package's records of the same scripts, accuracy only (their
+# speed figures were taken on a TPU and are not the port's): printed beside
+# the pins for scale. docs/MULTISEED_r05_tpu.json and docs/YSCALE_r05.json
+# seed 0; beside 14c, the JAX script's small error budget on a CPU
+# (tests/golden/error_budget_small.json)
+MULTISEED_R05_SEED0 = {"keyframes": 73, "loops": 95, "ate_cm": 4.85,
+                       "heading_deg": 0.172, "precision": 1.0, "recall": 0.818,
+                       "est_dvl_scale_xy": [1.02571, 0.99772]}
+YSCALE_R05_SEED0 = {"est_scale_xy": [1.03117, 0.99758], "x_err_pct": 0.78,
+                    "y_err_pct": 0.217, "loops": 51, "ate_cm": 8.84}
 # the JAX package's state array layout (sonar_slam_tpu/io/state.py)
 JAX_STATE_DTYPE = [("time", "<f8"), ("pose", "<f4", (3,)),
                    ("dr_pose3", "<f4", (6,)), ("cov", "<f4", (9,))]
@@ -1440,6 +1516,185 @@ def run_sharded(dev) -> dict:
     return launches
 
 
+def _sum_only(name: str, launches: dict, least: int):
+    if launches["sum"] < least or sum(launches.values()) != launches["sum"]:
+        raise RuntimeError(f"{name} made CFAR launches {launches}, expected "
+                           f">= {least}, all of the sum kernel")
+
+
+def run_multi_seed(dev) -> dict:
+    """Phase 14a: ``cli.multi_seed --full --seeds 1``, bench.py's SOCA +
+    refinement path at full width. Returns its launches by kernel."""
+    import numpy as np
+    from sonar_slam_torch.cli import multi_seed
+
+    run, took, peak, launches = _counted(lambda: multi_seed.main(
+        ["--full", "--seeds", "1"]))
+    rec = run.summary["per_seed"][0]
+    res = run.results[0]
+    log(f"cli.multi_seed --full --seeds 1: whole CLI {took:.2f} s, replay "
+        f"wall {rec['wall_s']} s, stages s {json.dumps(res.stage_s)}, peak "
+        f"memory {peak:.1f} MiB, CFAR launches {launches}")
+    log(f"cli.multi_seed, for scale only: the JAX script's seed 0 on a TPU "
+        f"(docs/MULTISEED_r05_tpu.json) {json.dumps(MULTISEED_R05_SEED0)}")
+    if not np.isfinite(res.trajectory).all():
+        raise RuntimeError("cli.multi_seed: trajectory not finite")
+    _sum_only("cli.multi_seed", launches, 1)
+    if rec["keyframes"] != FULL_KEYFRAMES:
+        raise RuntimeError(f"cli.multi_seed: {rec['keyframes']} keyframes, "
+                           f"expected {FULL_KEYFRAMES}")
+    _check_pin("cli.multi_seed (keyframes, loops, ATE cm, heading deg, precision, "
+         "recall, DVL scale x/y)",
+         (rec["keyframes"], rec["loops"], rec["ate_cm"], rec["heading_deg"],
+          rec["precision"], rec["recall"], rec["est_dvl_scale_xy"]),
+         MULTI_SEED_EXPECTED)
+    del run, res
+    return launches
+
+
+def run_yscale(dev) -> dict:
+    """Phase 14b: ``cli.yscale_lane --seeds 1``, the full pipeline on the
+    20-degree crab survey. Returns its launches by kernel."""
+    import numpy as np
+    from sonar_slam_torch.cli import yscale_lane
+
+    run, took, peak, launches = _counted(lambda: yscale_lane.main(
+        ["--seeds", "1"]))
+    rec = run.summary["per_seed"][0]
+    res = run.results[0]
+    log(f"cli.yscale_lane --seeds 1: whole CLI {took:.2f} s, replay wall "
+        f"{rec['wall_s']} s, stages s {json.dumps(res.stage_s)}, peak memory "
+        f"{peak:.1f} MiB, CFAR launches {launches}, {res.num_keyframes} "
+        f"keyframes")
+    log(f"cli.yscale_lane, for scale only: the JAX script's seed 0 on a TPU "
+        f"(docs/YSCALE_r05.json) {json.dumps(YSCALE_R05_SEED0)}")
+    if not np.isfinite(res.trajectory).all():
+        raise RuntimeError("cli.yscale_lane: trajectory not finite")
+    _sum_only("cli.yscale_lane", launches, 1)
+    _check_pin("cli.yscale_lane (est. scale x/y, x err %, y err %, loops, ATE cm)",
+         (rec["est_scale_xy"], rec["x_err_pct"], rec["y_err_pct"],
+          rec["loops"], rec["ate_cm"]), YSCALE_EXPECTED)
+    del run, res
+    return launches
+
+
+def run_error_budget(dev) -> dict:
+    """Phase 14c: ``cli.error_budget`` (small): four lanes and the feature
+    fidelity. Returns its launches by kernel."""
+    from sonar_slam_torch.cli import error_budget
+
+    run, took, peak, launches = _counted(lambda: error_budget.main([]))
+    log(f"cli.error_budget: whole CLI {took:.2f} s, peak memory {peak:.1f} "
+        f"MiB, CFAR launches {launches}")
+    with open(os.path.join(HERE, "tests", "golden",
+                           "error_budget_small.json")) as f:
+        log(f"cli.error_budget, for scale only: the JAX script on a CPU "
+            f"(tests/golden/error_budget_small.json) {json.dumps(json.load(f))}")
+    # one launch for each of the feature-fidelity pings, one for each of
+    # lanes A and B (lanes C and D take the true features)
+    _sum_only("cli.error_budget", launches, 3)
+    _check_pin("cli.error_budget report", run.report, ERROR_BUDGET_EXPECTED)
+    return launches
+
+
+def run_accuracy_sweep(dev) -> dict:
+    """Phase 14d: ``cli.accuracy_sweep`` (small, one seed): seven variants.
+    Returns its launches by kernel."""
+    from sonar_slam_torch.cli import accuracy_sweep
+
+    run, took, peak, launches = _counted(lambda: accuracy_sweep.main([]))
+    log(f"cli.accuracy_sweep: whole CLI {took:.2f} s, peak memory {peak:.1f} "
+        f"MiB, CFAR launches {launches}")
+    _sum_only("cli.accuracy_sweep", launches, len(accuracy_sweep.VARIANTS))
+    _check_pin("cli.accuracy_sweep ranked (label, ATE cm, loops)",
+         [(r["label"], r["ate_cm"][0], r["loops"][0]) for r in run.results],
+         ACCURACY_SWEEP_EXPECTED)
+    return launches
+
+
+def run_map_probes(dev) -> tuple[dict, dict]:
+    """Phase 14e: ``cli.map_probe`` (small), then
+    ``cli.frontier_coverage_probe --alg OS`` (small). Returns their launches
+    by kernel."""
+    from sonar_slam_torch.cli import frontier_coverage_probe, map_probe
+
+    run, took, peak, launches = _counted(lambda: map_probe.main([]))
+    log(f"cli.map_probe: whole CLI {took:.2f} s, peak memory {peak:.1f} MiB, "
+        f"CFAR launches {launches}")
+    _sum_only("cli.map_probe", launches, 1)
+    _check_pin("cli.map_probe report", json.loads(json.dumps(run.report)),
+         MAP_PROBE_EXPECTED)
+    run, took, peak, launches_os = _counted(
+        lambda: frontier_coverage_probe.main(["--alg", "OS"]))
+    log(f"cli.frontier_coverage_probe --alg OS: whole CLI {took:.2f} s, peak "
+        f"memory {peak:.1f} MiB, CFAR launches {launches_os}")
+    if (launches_os["os_mask"] < 1
+            or sum(launches_os.values()) != launches_os["os_mask"]):
+        raise RuntimeError(f"cli.frontier_coverage_probe made CFAR launches "
+                           f"{launches_os}, expected >= 1, all of the OS mask "
+                           "kernel")
+    _check_pin("cli.frontier_coverage_probe --alg OS report", run.report,
+         FRONTIER_OS_EXPECTED)
+    return launches, launches_os
+
+
+def run_repeats(dev, work: str) -> dict:
+    """Phase 14f: ``cli.run_repeats`` with two runs of ``cli.replay`` on a
+    20 s survey of 64 x 32 pings, each in a subprocess, then
+    ``cli.plot_runs.trajectory_spread`` over them: card replays repeat bit
+    for bit, so the spread must be 0.0. The runs' launches are read from
+    their log lines (their stderr, redirected here into a file). Returns the
+    launches by kernel summed over the runs."""
+    import re
+
+    from sonar_slam_torch.cli import plot_runs
+    from sonar_slam_torch.cli import run_repeats as repeats_cli
+    from sonar_slam_torch.cli.simulate_bag import write_bundle
+    from sonar_slam_torch.io.simulate import SimConfig, simulate_bag
+
+    bag = os.path.join(work, "repeats.npz")
+    write_bundle(bag, simulate_bag(SimConfig(
+        duration=20.0, speed=0.5, sonar_rate=1.0, num_ranges=64,
+        num_bearings=32, loop_radius=2.5, imu_rate=10.0)))
+    outdir = os.path.join(work, "runs")
+    with tempfile.TemporaryFile(mode="w+") as cap:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(cap.fileno(), 2)
+        t0 = time.perf_counter()
+        try:
+            run = repeats_cli.main([bag, "--runs", str(REPEAT_RUNS),
+                                    "--outdir", outdir, "--timeout", "300"])
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        took = time.perf_counter() - t0
+        cap.seek(0)
+        text = cap.read()
+    lines = [ln for ln in text.splitlines() if "CFAR launches" in ln]
+    for ln in lines:
+        log(f"  run: {ln.strip()}")
+    per_run = [json.loads(re.search(r"CFAR launches (\{.*\})", ln).group(1))
+               for ln in lines]
+    launches = {k: sum(r[k] for r in per_run) for k in ("sum", "os_mask",
+                                                        "os_select")}
+    spread = plot_runs.trajectory_spread(plot_runs.trajectory_files(outdir))
+    log(f"cli.run_repeats: {REPEAT_RUNS} runs in {took:.2f} s, exit codes "
+        f"{[r[3] for r in run.runs]}, CFAR launches of the runs {launches}; "
+        f"cli.plot_runs.trajectory_spread {spread}")
+    if [r[3] for r in run.runs] != [0] * REPEAT_RUNS or len(per_run) != REPEAT_RUNS:
+        raise RuntimeError(f"cli.run_repeats: runs {run.runs}, {len(per_run)} "
+                           "logged their launches")
+    if any(r["sum"] != 1 or sum(r.values()) != 1 for r in per_run):
+        raise RuntimeError(f"cli.run_repeats: runs made CFAR launches "
+                           f"{per_run}, expected one of the sum kernel each")
+    if spread != 0.0:
+        raise RuntimeError(f"cli.run_repeats: trajectory spread {spread}, "
+                           "expected 0.0")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1562,6 +1817,30 @@ def main() -> int:
         by_path_os[name] = launches["os_mask"] + launches["os_select"]
         torch.cuda.empty_cache()
     log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    # 14) the accuracy CLIs: the production SOCA + refinement path and the
+    # y-scale lane at full width, then the small harnesses
+    t14 = time.perf_counter()
+    for name, run in (("multi_seed", run_multi_seed), ("yscale_lane", run_yscale),
+                      ("error_budget", run_error_budget),
+                      ("accuracy_sweep", run_accuracy_sweep)):
+        launches = run(dev)
+        by_path[name] = launches["sum"]
+        by_path_os[name] = launches["os_mask"] + launches["os_select"]
+        torch.cuda.empty_cache()
+    launches, launches_os = run_map_probes(dev)
+    by_path["map_probe"] = launches["sum"]
+    by_path_os["map_probe"] = launches["os_mask"] + launches["os_select"]
+    by_path["frontier_coverage_probe_os"] = launches_os["sum"]
+    by_path_os["frontier_coverage_probe_os"] = launches_os["os_mask"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches = run_repeats(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    by_path["run_repeats"] = launches["sum"]
+    by_path_os["run_repeats"] = launches["os_mask"] + launches["os_select"]
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     entry["launches_by_path"] = by_path
     entry_os["launches_by_path"] = by_path_os
 

@@ -11,8 +11,26 @@
   sharded_replay  replay at a large keyframe capacity (default 1024), with
                   ``--check`` against the same replay at capacity 128
 
+The accuracy harnesses, on bench.py's production configurations:
+
+  error_budget    the ATE split into four lanes (sensor noise, feature
+                  noise, estimation) plus the feature fidelity RMS
+  multi_seed      the production replay over N seeds: ATE, heading, loop
+                  precision and recall, DVL-scale recovery
+  yscale_lane     the full pipeline on a 20 deg-crab survey: per-axis DVL
+                  scale recovery
+  accuracy_sweep  the ATE under a grid of resolution and noise variants
+  map_probe       the distance distributions behind the map metrics
+  frontier_coverage_probe
+                  the truth scatterers each front-end stage keeps
+  run_repeats     each bag replayed N times by ``cli.replay`` in
+                  subprocesses under a timeout
+  plot_runs       overlay of the repeated runs' trajectories and their
+                  spread (matplotlib; the spread alone needs none)
+
 Each runs on a CUDA card, or on the CPU with ``--cpu``; without a card and
-without ``--cpu`` it exits with an error.
+without ``--cpu`` it exits with an error. ``plot_runs`` only reads files and
+takes no ``--cpu``.
 """
 
 import sys

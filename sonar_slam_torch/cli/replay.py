@@ -127,6 +127,7 @@ def main(argv=None) -> ReplayRun:
 
     from ..io.config import load_feature_config, load_slam_config
     from ..io.state import get_states, save_checkpoint
+    from ..kernels.cfar_cuda import cfar_detect
     from ..pipeline import ate_rmse, replay
     from ..utils import CodeTimer, loginfo
 
@@ -177,7 +178,10 @@ def main(argv=None) -> ReplayRun:
         f"ATE {ate*100:.1f} cm, wall {wall:.1f}s "
         f"({(bag.ping_time[-1]-bag.ping_time[0])/max(wall,1e-9):.1f}x real-time)"
     )
-    loginfo(f"stages s {json.dumps(res.stage_s)} on {device}")
+    # the launch counters count this process's card launches (none on the
+    # CPU); a process that runs one replay logs the replay's own
+    loginfo(f"stages s {json.dumps(res.stage_s)} on {device}, CFAR launches "
+            f"{json.dumps(cfar_detect.kernel_launches)}")
 
     mst = model = mapping_s = None
     if not args.no_map:

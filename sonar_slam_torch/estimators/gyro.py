@@ -35,7 +35,11 @@ def gyro_integrate(deltas: torch.Tensor, config: GyroConfig) -> torch.Tensor:
     """Integrate (T, 3) delta-angle messages -> (T, 3) (yaw, pitch, roll)."""
     arr = torch.matmul(deltas, config.offset_matrix)
     d_roll = arr[:, 2] + config.earth_rate / config.sensor_rate
-    yaw = config.yaw0 + torch.cumsum(arr[:, 0], dim=0)
-    pitch = config.pitch0 + torch.cumsum(arr[:, 1], dim=0)
-    roll = config.roll0 + torch.cumsum(d_roll, dim=0)
+    # one scan of three rows: on a card a single long row is scanned by
+    # CUB's decoupled look-back, whose float sums are associated in an order
+    # that depends on timing; rows take ATen's row scan, the same every run
+    sums = torch.cumsum(torch.stack([arr[:, 0], arr[:, 1], d_roll]), dim=1)
+    yaw = config.yaw0 + sums[0]
+    pitch = config.pitch0 + sums[1]
+    roll = config.roll0 + sums[2]
     return torch.stack([yaw, pitch, roll], dim=-1)

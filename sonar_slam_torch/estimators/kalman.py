@@ -179,8 +179,10 @@ def kalman_scan(events_type: np.ndarray, events_z: torch.Tensor,
                                    yaw[:-1]])
         tx, ty = xi[:, 6] * cfg.dt_imu, xi[:, 7] * cfg.dt_imu
         cy, sy = torch.cos(frame_yaw), torch.sin(frame_yaw)
-        px = torch.cumsum(cy * tx - sy * ty, dim=0)
-        py = torch.cumsum(sy * tx + cy * ty, dim=0)
+        # one scan of two rows, the same bits every run on a card (a single
+        # long row goes through CUB's timing-dependent look-back; gyro.py)
+        px, py = torch.cumsum(torch.stack([cy * tx - sy * ty,
+                                           sy * tx + cy * ty]), dim=1)
         pose_imu = torch.stack([px, py, 0.0 * px, xi[:, 3], xi[:, 4], yaw],
                                dim=-1)
         # forward fill: each event holds the pose of the last IMU event

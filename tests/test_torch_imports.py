@@ -2,8 +2,9 @@
 JAX package: a fresh interpreter with those imports blocked imports every
 module of the port and chip_smoke.py. None of them loads PyYAML, matplotlib
 or PIL either (the card's machine need not have them), and neither does a
-whole run of ``cli.replay`` or of ``cli.two_robot_demo`` (without
-``--plot``) on the CPU."""
+whole run of ``cli.replay``, of ``cli.two_robot_demo`` (without
+``--plot``) or of ``cli.map_probe`` (which imports ``cli.error_budget``, the
+configurations of every accuracy CLI) on the CPU."""
 
 import os
 import subprocess
@@ -44,7 +45,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.strip().splitlines()[-1].split()
-    assert len(names) >= 59
+    assert len(names) >= 67
     for new in ("slam.refine", "mapping", "mapping.occupancy",
                 "mapping.metrics", "estimators.gyro", "estimators.kalman",
                 "slam.dual_sonar", "slam.services", "io.config", "io.state",
@@ -53,7 +54,10 @@ def test_port_imports_no_jax():
                 "cli", "cli.replay", "cli.convert_bag", "cli.simulate_bag",
                 "parallel", "parallel.sweep", "parallel.keyframe_shard",
                 "parallel.multi_robot", "cli.sweep", "cli.two_robot_demo",
-                "cli.sharded_replay"):
+                "cli.sharded_replay", "cli.error_budget", "cli.multi_seed",
+                "cli.yscale_lane", "cli.accuracy_sweep", "cli.map_probe",
+                "cli.frontier_coverage_probe", "cli.run_repeats",
+                "cli.plot_runs"):
         assert "sonar_slam_torch." + new in names, new
 
 
@@ -120,5 +124,37 @@ def test_cli_two_robot_demo_loads_no_jax_yaml_matplotlib_or_pil():
         [sys.executable, "-c", _TWO_ROBOT_SCRIPT.format(root=ROOT)], cwd=ROOT,
         capture_output=True, text=True, timeout=600,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "present: []"
+
+
+_MAP_PROBE_SCRIPT = r"""
+import importlib.abc, sys
+sys.path.insert(0, {root!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu", "scripts",
+                                  "bench", "error_budget"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+from sonar_slam_torch.cli import map_probe
+
+out = map_probe.main(["--cpu"]).report
+assert out["n_cells"] > 0, out
+present = sorted(m for m in ("jax", "yaml", "matplotlib", "PIL")
+                 if m in sys.modules)
+print("present:", present)
+"""
+
+
+def test_cli_map_probe_loads_no_jax_yaml_matplotlib_or_pil():
+    proc = subprocess.run(
+        [sys.executable, "-c", _MAP_PROBE_SCRIPT.format(root=ROOT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, OMP_NUM_THREADS="1", MALLOC_MMAP_MAX_="0",
+                 MALLOC_TRIM_THRESHOLD_="68719476736"))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "present: []"

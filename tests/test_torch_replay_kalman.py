@@ -12,7 +12,7 @@ Whether the SLAM ends better or worse than the odometry it starts from is
 the reference algorithm's behaviour, and the port's follows it: on the small
 bag both packages end better (ATE 0.0540 m against 0.0814 m for the
 odometry at the keyframes). On the full survey the card's Kalman replay ends
-worse (0.2357 m against 0.2139 m); that size does not run here.
+worse (0.2283 m against 0.2139 m); that size does not run here.
 ``PYTHONPATH=. python tests/test_torch_replay_kalman.py`` replays the full
 survey's streams with its pings rendered at 128 x 64 and 1 Hz (the small
 configuration, 160 keyframe slots; about 20 minutes on the CPU) through
