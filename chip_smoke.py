@@ -7,16 +7,19 @@ the script exits non-zero without printing the result line:
 
 1. device: a CUDA card is required (there is no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CFAR kernels (kernels/csrc/cfar.cu) with nvcc;
+2. build: compiles the CFAR kernels (kernels/csrc/cfar.cu) with nvcc and
+   the LZ4 decoder (io/csrc/lz4.cpp) with the host C++ compiler;
 3. kernels against plain versions, on the same simulated full-geometry
    pings: two stacks of 128 pings of 512 x 256 (pings 0-127 and 128-255).
    The sum kernel at (128, 512, 256) SOCA with edge extension and the
    intensity gate at 65, with and without the threshold map, plus CA, GOCA
    and the strict edge at (4, 96, 40); the OS mask path (mask only, the
-   feature path's call) and the OS threshold path at (128, 512, 256),
-   extend, gate 65, rank 10, plus ranks 0, 10 and 39 with both edges at
-   (4, 96, 40), on the float pings and on an integer-valued copy. Masks and
-   thresholds must be equal bit for bit. Times by CUDA events after warm-up,
+   feature path's call) and the OS threshold path (the selection kernel)
+   at (128, 512, 256), extend, gate 65, ranks 10, 0 and 39, plus ranks 0,
+   10 and 39 with both edges at (4, 96, 40), on the float pings and on an
+   integer-valued copy; the selection kernel with tau 0 and -1, and on a
+   ragged (3, 97, 37) stack with NaN and infinities. Masks and thresholds
+   must be equal bit for bit. Times by CUDA events after warm-up,
    alternating between the two stacks (so no launch reads its input from
    L2), in the order plain, kernel, kernel, plain; then the threshold path,
    a call whose gate no pixel passes (no window arithmetic: the tile's
@@ -62,7 +65,11 @@ the script exits non-zero without printing the result line:
    keyframes against the JAX result's and bench.py's ``dual_sonar`` numbers,
    its z RMSE within DUAL_Z_BAND_M of the JAX result's; see ``run_dual_lane``.
 
-11. the bag seam: a small simulated survey with its pings quantized to
+11. the LZ4 decoder: 8 MB of phase 4's pings, gamma-quantized to 8 bits,
+   as LZ4 frames (as rendered, and gated at 65 so that they compress),
+   decoded by the compiled decoder and by the pure-Python one, byte-equal,
+   each rate logged (``check_lz4_decoder``); then the bag seam: a small
+   simulated survey with its pings quantized to
    8 bits by the sonar's gamma, written as an lz4-chunked ROS bag with raw
    ``sensor_msgs/Image`` pings (``io.rosbag.write_bag``), converted by
    ``cli.convert_bag`` and replayed by ``cli.replay`` on the card with the
@@ -99,6 +106,10 @@ the script exits non-zero without printing the result line:
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py survey-bag`` runs one measurement instead, on the
+host alone: phase 4's survey as lz4 ROS bags through ``cli.convert_bag``
+with each LZ4 decoder (``run_survey_bag``).
 """
 
 from __future__ import annotations
@@ -559,10 +570,14 @@ def check_os_kernel(stacks):
 
     The mask path (``cfar_os_mask_kernel``: mask only, tau > 0, the feature
     path's call) must give the plain version's mask bit for bit; the
-    threshold path (``cfar_os_kernel``, the exact selection) its mask and
-    threshold map. Both on the float pings and on an integer-valued copy, at
-    (128, 512, 256) with rank 10 (the main path's call) and at (4, 96, 40),
-    which crosses both border bands, with ranks 0, 10 and 39."""
+    threshold path (``cfar_os_kernel``, the exact selection from a sorted
+    sliding window) its mask and threshold map. Both on the float pings and
+    on an integer-valued copy, at (128, 512, 256) with ranks 10 (the main
+    path's call), 0 and 39 and at (4, 96, 40), which crosses both border
+    bands, with ranks 0, 10 and 39; then the threshold path with tau 0 and
+    -1 at (128, 512, 256), and on a ragged (3, 97, 37) stack with NaN, +inf
+    and -inf pixels at ranks 0, 10 and 39, both edges, with and without the
+    gate."""
     import torch
     from sonar_slam_torch.kernels.cfar_cuda import cfar_detect, cfar_os_plain
     from sonar_slam_torch.kernels.cfar_factors import threshold_factor_os
@@ -571,7 +586,7 @@ def check_os_kernel(stacks):
     t, g, gate, rank = 20, 5, 65.0, 10
     tau = threshold_factor_os(40, rank, 0.1)
     small = imgs[:4, :96, :40].contiguous()
-    cases = [(imgs, rank, "extend")] + [
+    cases = [(imgs, k, "extend") for k in (rank, 0, 39)] + [
         (small, k, edge) for k in (0, 10, 39) for edge in ("strict", "extend")]
     thr_err = 0.0
     for kind, prep in (("float", None), ("integer", torch.round)):
@@ -596,6 +611,41 @@ def check_os_kernel(stacks):
             if case is imgs and prep is None:
                 thr_err = err
             del view, dm, dk, tk, dp, tp
+
+    # the threshold path alone: tau <= 0 (no mask kernel takes it), and a
+    # ragged stack with NaN and infinities
+    def equal_nan(a, b):
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+    for tau_x in (0.0, -1.0):
+        dk, tk = cfar_detect(imgs, t, g, tau_x, "OS", gate, "extend",
+                             with_threshold=True, rank=rank)
+        dp, tp = cfar_os_plain(imgs, t, g, rank, tau_x, gate, "extend")
+        torch.cuda.synchronize()
+        ok = torch.equal(dk, dp) and torch.equal(tk, tp)
+        log(f"cfar OS threshold path tau {tau_x} rank {rank} "
+            f"{tuple(imgs.shape)}: bitwise equal {ok}")
+        if not ok:
+            raise RuntimeError(f"OS selection kernel disagrees (tau {tau_x})")
+        del dk, tk, dp, tp
+    ragged = imgs[:3, :97, :37].clone()
+    ragged[0, 3, 1] = float("nan")
+    ragged[1, 50, 36] = float("inf")
+    ragged[2, 10, 5] = float("-inf")
+    ragged[2, 20:30, 7] = 5.0
+    for k in (0, 10, 39):
+        for edge in ("strict", "extend"):
+            for gate_x in (None, gate):
+                dk, tk = cfar_detect(ragged, t, g, tau, "OS", gate_x, edge,
+                                     with_threshold=True, rank=k)
+                dp, tp = cfar_os_plain(ragged, t, g, k, tau, gate_x, edge)
+                torch.cuda.synchronize()
+                if not (torch.equal(dk, dp) and equal_nan(tk, tp)):
+                    raise RuntimeError(f"OS selection kernel disagrees on the "
+                                       f"ragged stack ({edge}, rank {k}, "
+                                       f"gate {gate_x})")
+    log("cfar OS threshold path on (3, 97, 37) with NaN and inf, ranks 0, 10, "
+        "39, both edges, with and without the gate: bitwise equal")
 
     # which path each warp takes: a warp holds 8 rows x 64 columns of one
     # frame (csrc/cfar.cu's tile); up to 128 gated pixels go on the block's
@@ -643,6 +693,11 @@ def check_os_kernel(stacks):
     k2 = cuda_time_ms(kern, stacks)
     p2 = cuda_time_ms(plain, stacks, reps=4, warmup=1)
     kt = cuda_time_ms(kern_thr, stacks)
+    # the same call at another rank takes cfar_os_window_kernel (one sorted
+    # array of 40, read at a run-time rank)
+    kt0 = cuda_time_ms(lambda x: cfar_detect(
+        x, t, g, tau, "OS", gate, "extend", with_threshold=True, rank=0),
+        stacks)
     kn = cuda_time_ms(kern_no_gate, stacks)
     floor = cuda_time_ms(lambda x: cfar_detect(x, t, g, tau, "OS", 1e30,
                                                "extend", rank=rank), stacks)
@@ -655,8 +710,10 @@ def check_os_kernel(stacks):
     # cells: at least 2 * t - 1 comparisons
     thr_bound, thr_by = bound(imgs, (2 * t - 1) * imgs.numel(),
                               with_threshold=True)
-    log(f"cfar OS threshold path bound {thr_bound} ({thr_by}), share "
-        f"{thr_bound / kt}")
+    log(f"cfar OS threshold path (cfar_os_split_kernel, rank 10) {kt} ms, "
+        f"bound {thr_bound} ({thr_by}), share {thr_bound / kt}, "
+        f"torch.kthvalue {lib} ms ({lib / kt:.1f}x the kernel's time); rank 0 "
+        f"(cfar_os_window_kernel) {kt0} ms")
     log(f"cfar OS extend rank 10 {tuple(imgs.shape)} ms: mask path {k1} {k2}, "
         f"plain {p1} {p2}; threshold path (selection) {kt}; mask path "
         f"without the gate (every warp on the strip path) {kn}; with a gate "
@@ -666,7 +723,8 @@ def check_os_kernel(stacks):
         f"window stack {lib}; bound {bound_ms} ({bound_by}), share "
         f"{bound_ms / ms}")
     return {"name": "cfar_os_mask_kernel (OS mask path, exact rank count, "
-                    "fused intensity gate; threshold path cfar_os_kernel)",
+                    "fused intensity gate; threshold path cfar_os_kernel: "
+                    "a sorted sliding window down each column)",
             "route": "cuda",
             "source": "sonar_slam_torch/kernels/csrc/cfar.cu",
             "replaces": "sonar_slam_tpu/kernels/cfar_pallas.py:63",
@@ -677,6 +735,7 @@ def check_os_kernel(stacks):
             "bound_ms_with_threshold": thr_bound,
             "bound_by_with_threshold": thr_by,
             "roofline_share_with_threshold": thr_bound / kt,
+            "ms_with_threshold_rank0": kt0,
             "library_call": "torch.kthvalue on the window stack, k-th "
                             "smallest only"}
 
@@ -735,16 +794,10 @@ def run_os_path(bag, dev) -> int:
         raise RuntimeError(f"OS path made {launches} CFAR launches, "
                            f"{mask_launches} of the OS mask kernel; expected "
                            f">= 3, all of it")
-    checks = {
-        "keyframes": nk == FULL_KEYFRAMES,
-        "loops": nl == OS_LOOPS,
-        "ATE m": round(ate, 4) == OS_ATE_M,
-        "ATE deg": round(ate_deg, 3) == OS_ATE_DEG,
-        **{f"map {k}": mm[k] == v for k, v in OS_MAP.items()},
-    }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"OS path differs from its expected result: {failed}")
+    _check_pin("OS path (keyframes, loops, ATE m, ATE deg, map)",
+               (nk, nl, round(ate, 4), round(ate_deg, 3),
+                {k: mm[k] for k in OS_MAP}),
+               (FULL_KEYFRAMES, OS_LOOPS, OS_ATE_M, OS_ATE_DEG, OS_MAP))
     return mask_launches
 
 
@@ -949,10 +1002,8 @@ def run_frontend_path(bag, dev, frontend: str) -> int:
         raise RuntimeError(f"{frontend} path: odometry or keyframes differ "
                            f"from the JAX package's")
     got = (res.num_keyframes, nl, round(ate, 4), round(ate_deg, 3))
-    expected = FRONTEND_EXPECTED[frontend]
-    if expected is not None and got != expected:
-        raise RuntimeError(f"{frontend} path: (keyframes, loops, ATE m, ATE "
-                           f"deg) {got}, expected {expected}")
+    _check_pin(f"{frontend} path (keyframes, loops, ATE m, ATE deg)", got,
+               FRONTEND_EXPECTED[frontend])
     return sum_launches
 
 
@@ -1184,31 +1235,78 @@ def _ser_ping(seq, t, gamma, img, bearings_cdeg, res):
     return out + struct.pack("<dI", res, h) + struct.pack("<I", len(b))
 
 
-def run_bag_seam(dev, work: str) -> int:
-    """Phase 11: a small survey through a genuine lz4 bag, ``cli.convert_bag``
-    and ``cli.replay`` on the card, against ``pipeline.replay`` of the same
-    quantized arrays in process. Returns the CLI run's sum-kernel launches."""
+def gamma_quantize(images, gamma: int = 127):
+    """The sonar's gamma compression of float pings to 8 bits, the wire's
+    quantization (``cli.convert_bag.gamma_decompress`` inverts it)."""
+    import numpy as np
+
+    x = np.clip(np.asarray(images, np.float64) / 255.0, 0.0, 1.0)
+    return np.round(255.0 * x ** (gamma / 255.0)).astype(np.uint8)
+
+
+def check_lz4_decoder(bag, pings: int = 64, per_frame: int = 8) -> dict:
+    """Phase 11's decoder check: LZ4 frames (``per_frame`` pings each) of
+    phase 4's first ``pings`` pings, gamma-quantized to 8 bits, decoded by
+    the compiled decoder and by the pure-Python one, which must give the
+    same bytes. The simulator's speckle leaves those bytes incompressible,
+    so the compressor stores every block raw; the same pings with every
+    pixel at or under the intensity gate (65) set to 0 compress, and their
+    frames take the block decoder. Returns the rates in MB/s of decoded
+    bytes for both, measured on this machine's host CPU."""
+    import numpy as np
+    from sonar_slam_torch.io import lz4
+
+    quantized = gamma_quantize(bag.ping_images[:pings])
+    gated = np.where(bag.ping_images[:pings] > 65.0, quantized, 0).astype(np.uint8)
+    out = {}
+    for name, raw in (("pings", quantized), ("gated pings", gated)):
+        chunks = [raw[i:i + per_frame].tobytes()
+                  for i in range(0, pings, per_frame)]
+        t0 = time.perf_counter()
+        frames = [lz4.compress_frame(c) for c in chunks]
+        t_compress = time.perf_counter() - t0
+        total = sum(map(len, chunks))
+
+        def rate(decode, reps):
+            best = float("inf")
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = [decode(f) for f in frames]
+                best = min(best, time.perf_counter() - t0)
+            if got != chunks:
+                raise RuntimeError(f"{decode.__name__} does not give the "
+                                   f"{name}' bytes back")
+            return total / best / 1e6
+
+        compiled = rate(lz4.decompress_frame, 5)
+        plain = rate(lz4.decompress_frame_plain, 1)
+        ratio = total / sum(map(len, frames))
+        log(f"lz4 {name}: {total} bytes in {len(frames)} frames (ratio "
+            f"{ratio:.3f}, Python compressor {t_compress:.1f} s); decoded MB/s "
+            f"(host CPU): compiled {compiled:.1f}, pure Python {plain:.2f}, "
+            f"{compiled / plain:.1f}x; byte-equal")
+        if compiled < 50 * plain:
+            raise RuntimeError(f"the compiled LZ4 decoder is under 50x the "
+                               f"pure-Python one on the {name}")
+        out[name] = {"bytes": total, "frames": len(frames), "ratio": ratio,
+                     "compiled_mb_s": compiled, "plain_mb_s": plain}
+    return out
+
+
+def write_lz4_bag(bag, path: str, gamma: int = 127,
+                  chunk_size: int | None = None):
+    """Writes ``bag`` as an lz4-chunked ROS bag with raw 8-bit pings (the
+    IMU yaw as a quaternion, the DVL, the depth and the gamma-quantized
+    pings, each message stamped as the sensors' nodes stamp it), in one
+    chunk or in chunks of ``chunk_size`` bytes. Returns the quantized
+    pings, the quaternions, the bearings in hundredths of a degree, the
+    range resolution and the number of messages."""
     import struct
 
     import numpy as np
-    import torch
-    from sonar_slam_torch.cli import convert_bag
-    from sonar_slam_torch.cli import replay as replay_cli
-    from sonar_slam_torch.io.config import load_feature_config, load_slam_config
-    from sonar_slam_torch.io.rosbag import ROS_TOPICS, _quat_to_rpy, write_bag
-    from sonar_slam_torch.io.simulate import SimConfig, SyntheticBag, simulate_bag
-    from sonar_slam_torch.kernels import cfar_cuda
-    from sonar_slam_torch.pipeline import replay
-    from sonar_slam_torch.slam.sonar import SonarGeometry
+    from sonar_slam_torch.io.rosbag import ROS_TOPICS, write_bag
 
-    # tests/test_torch_cli.py's survey: 13 keyframes and 4 loops
-    sim = SimConfig(duration=40.0, speed=0.5, sonar_rate=1.0, num_ranges=96,
-                    num_bearings=48, loop_radius=2.5, imu_rate=20.0, seed=2)
-    bag = simulate_bag(sim)
-    gamma = 127
-    # the sonar's gamma compression to 8 bits, the wire's quantization
-    x = np.clip(bag.ping_images.astype(np.float64) / 255.0, 0.0, 1.0)
-    imgs_q = np.round(255.0 * x ** (gamma / 255.0)).astype(np.uint8)
+    imgs_q = gamma_quantize(bag.ping_images, gamma)
     cdeg = np.round(np.degrees(bag.geometry.bearings) * 100)
     res = bag.geometry.range_resolution
     quats = [(0.0, 0.0, float(np.sin(y / 2)), float(np.cos(y / 2)))
@@ -1231,10 +1329,34 @@ def run_bag_seam(dev, work: str) -> int:
                  ("dvl", "rti_dvl/DVL", DVL_DEF),
                  ("depth", "bar30_depth/Depth", DEPTH_DEF),
                  ("sonar", "sonar_oculus/OculusPing", PING_DEF)))]
+    write_bag(path, conns, msgs, compression="lz4", chunk_size=chunk_size)
+    return imgs_q, quats, cdeg, res, len(msgs)
+
+
+def run_bag_seam(dev, work: str) -> int:
+    """Phase 11: a small survey through a genuine lz4 bag, ``cli.convert_bag``
+    and ``cli.replay`` on the card, against ``pipeline.replay`` of the same
+    quantized arrays in process. Returns the CLI run's sum-kernel launches."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.cli import convert_bag
+    from sonar_slam_torch.cli import replay as replay_cli
+    from sonar_slam_torch.io.config import load_feature_config, load_slam_config
+    from sonar_slam_torch.io.rosbag import _quat_to_rpy
+    from sonar_slam_torch.io.simulate import SimConfig, SyntheticBag, simulate_bag
+    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.pipeline import replay
+    from sonar_slam_torch.slam.sonar import SonarGeometry
+
+    # tests/test_torch_cli.py's survey: 13 keyframes and 4 loops
+    sim = SimConfig(duration=40.0, speed=0.5, sonar_rate=1.0, num_ranges=96,
+                    num_bearings=48, loop_radius=2.5, imu_rate=20.0, seed=2)
+    bag = simulate_bag(sim)
+    gamma = 127
     bag_path = os.path.join(work, "seam.bag")
     bundle = os.path.join(work, "seam.npz")
     t0 = time.perf_counter()
-    write_bag(bag_path, conns, msgs, compression="lz4")
+    imgs_q, quats, cdeg, res, n_msgs = write_lz4_bag(bag, bag_path, gamma)
     convert_bag.main([bag_path, "--out", bundle])
     t_convert = time.perf_counter() - t0
 
@@ -1284,7 +1406,7 @@ def run_bag_seam(dev, work: str) -> int:
             and np.array_equal(got.dense_trajectory, ref.dense_trajectory)
             and got.carry.num_loops == ref.carry.num_loops
             and torch.equal(got.carry.points, ref.carry.points))
-    log(f"bag seam: {len(msgs)} messages, lz4 bag {os.path.getsize(bag_path)} "
+    log(f"bag seam: {n_msgs} messages, lz4 bag {os.path.getsize(bag_path)} "
         f"bytes, written and converted in {t_convert:.2f} s; cli.replay "
         f"{got.num_keyframes} keyframes, {got.carry.num_loops} loops, wall "
         f"{run.wall_s:.2f} s, stages s {json.dumps(got.stage_s)}; in-process "
@@ -1387,9 +1509,8 @@ def run_cli_full(bag, dev, work: str) -> int:
     if repaint_diff > CLI_REPAINT_SHARE * observed:
         raise RuntimeError("cli.replay: occ differs from a full repaint")
     got = (res.num_keyframes, nl, round(run.ate_m, 4), round(ate_deg, 3))
-    if got != CLI_EXPECTED:
-        raise RuntimeError(f"cli.replay: (keyframes, loops, ATE m, ATE deg) "
-                           f"{got}, expected {CLI_EXPECTED}")
+    _check_pin("cli.replay (keyframes, loops, ATE m, ATE deg)", got,
+               CLI_EXPECTED)
     return sum_launches
 
 
@@ -1695,6 +1816,69 @@ def run_repeats(dev, work: str) -> dict:
     return launches
 
 
+def run_survey_bag() -> int:
+    """Phase 4's survey (2,398 pings of 512 x 256) written as an lz4 ROS bag
+    in rosbag's 768 kB chunks, each one LZ4 frame, then converted by
+    ``cli.convert_bag`` with the compiled LZ4 decoder and with the
+    pure-Python one (``io/lz4.py``'s plain version, patched into the bag
+    reader); the bundles must be array-equal. Once with the
+    pings as rendered and once gated (every pixel at or under 65 set to 0).
+    Host time only; run on the card's machine as ``python3 chip_smoke.py
+    survey-bag``."""
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    from sonar_slam_torch.cli import convert_bag
+    from sonar_slam_torch.io import lz4, lz4_lib, rosbag
+    from sonar_slam_torch.io.simulate import simulate_bag
+
+    log(f"built {os.path.relpath(lz4_lib.build(), HERE)}")
+    sim = full_config(seed=0)[0]
+    t0 = time.perf_counter()
+    bag = simulate_bag(sim)
+    log(f"simulated {len(bag.ping_time)} pings {bag.ping_images.shape[1:]} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    # as rendered (incompressible speckle: the blocks are stored raw), and
+    # gated as check_lz4_decoder gates them (compressible)
+    gated = bag._replace(ping_images=np.where(
+        bag.ping_images > 65.0, bag.ping_images, 0.0).astype(np.float32))
+    work = tempfile.mkdtemp(prefix="chip_smoke_bag_")
+    report = {}
+    try:
+        for label, survey in (("pings", bag), ("gated pings", gated)):
+            path = os.path.join(work, "survey.bag")
+            t0 = time.perf_counter()
+            n_pings = write_lz4_bag(survey, path, chunk_size=768 * 1024)[0].nbytes
+            log(f"{label}: wrote an lz4 bag of {os.path.getsize(path)} bytes, "
+                f"{n_pings} bytes of pings, in {time.perf_counter() - t0:.1f} s "
+                f"(the Python compressor)")
+            times = {}
+            for name, decode in (("compiled", lz4.decompress_frame),
+                                 ("plain", lz4.decompress_frame_plain)):
+                rosbag.lz4_decompress = decode
+                out = os.path.join(work, f"{name}.npz")
+                t0 = time.perf_counter()
+                convert_bag.main([path, "--out", out])
+                times[name] = time.perf_counter() - t0
+                log(f"{label}: cli.convert_bag with the {name} decoder "
+                    f"{times[name]:.2f} s")
+            rosbag.lz4_decompress = lz4.decompress_frame
+            with np.load(os.path.join(work, "compiled.npz")) as a, \
+                    np.load(os.path.join(work, "plain.npz")) as b:
+                if sorted(a.files) != sorted(b.files) or not all(
+                        np.array_equal(a[k], b[k]) for k in a.files):
+                    raise RuntimeError(f"{label}: the two decoders' bundles "
+                                       f"differ")
+                if a["ping_images"].shape[0] != len(survey.ping_time):
+                    raise RuntimeError(f"{label}: the bundle lost pings")
+            report[label] = {"bag_bytes": os.path.getsize(path),
+                             "ping_bytes": n_pings, "convert_s": times}
+        log(json.dumps({"survey_bag": report}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1718,10 +1902,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # 2) build
+    # 2) build: the CFAR kernels with nvcc, the LZ4 decoder with the host
+    # C++ compiler
+    from sonar_slam_torch.io import lz4_lib
+
     t_start = time.perf_counter()
     lib = cfar_cuda.build()
     log(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t_start:.2f} s")
+    t0 = time.perf_counter()
+    lib = lz4_lib.build()
+    log(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.2f} s")
 
     # 3) kernels against plain versions, on simulated full-geometry pings
     sim, dims, params_on, fcfg = full_config(seed=0)
@@ -1764,13 +1954,10 @@ def main() -> int:
         raise RuntimeError(f"replay made {launches} CFAR launches, "
                            f"{sum_launches} of the sum kernel; expected >= 3, "
                            f"all of it")
-    if (res.num_keyframes, res.carry.num_loops) != (FULL_KEYFRAMES, FULL_LOOPS):
-        raise RuntimeError(f"{res.num_keyframes} keyframes and "
-                           f"{res.carry.num_loops} loops, expected "
-                           f"{FULL_KEYFRAMES} and {FULL_LOOPS}")
-    if (round(ate, 4), round(ate_deg, 3)) != (FULL_ATE_M, FULL_ATE_DEG):
-        raise RuntimeError(f"ATE {ate} m / {ate_deg} deg, expected "
-                           f"{FULL_ATE_M} m / {FULL_ATE_DEG} deg")
+    _check_pin("replay (keyframes, loops, ATE m, ATE deg)",
+               (res.num_keyframes, res.carry.num_loops, round(ate, 4),
+                round(ate_deg, 3)),
+               (FULL_KEYFRAMES, FULL_LOOPS, FULL_ATE_M, FULL_ATE_DEG))
     entry["launches"] = sum_launches
     del res
 
@@ -1797,6 +1984,7 @@ def main() -> int:
 
     # 11-12) the command-line path: a bag through convert_bag and the
     # replay CLI, then the CLI on phase 4's survey
+    lz4_rates = check_lz4_decoder(bag)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         by_path["cli_bag_seam"] = run_bag_seam(dev, work)
@@ -1847,6 +2035,7 @@ def main() -> int:
     log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "
         f"(from the build)")
     log(json.dumps({"kalman_scan": kalman}))
+    log(json.dumps({"lz4_decoder": lz4_rates}))
     log(json.dumps({"kernels": [entry, entry_os]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1855,4 +2044,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_survey_bag() if sys.argv[1:] == ["survey-bag"] else main())

@@ -1,7 +1,11 @@
-"""Pure-Python LZ4 frame codec for rosbag chunk (de)compression.
+"""LZ4 frame codec for rosbag chunk (de)compression.
 
-Counterpart of ``sonar_slam_tpu/io/lz4.py``, without its optional native
-decoder: the pure-Python codec only. The reference reads lz4-chunked bags
+Counterpart of ``sonar_slam_tpu/io/lz4.py``. As there, decoding goes through
+compiled code: :mod:`sonar_slam_torch.io.lz4_lib` (this package's own host
+C++ source, built at first use) decodes frames, blocks of a known size
+bound, and XXH32 over more than 4 kB. The pure-Python codec below stays as
+the plain version (``decompress_block_plain``, ``decompress_frame_plain``,
+``xxh32_plain``) and the compressor. The reference reads lz4-chunked bags
 transparently through rosbag/roslz4 (its ``utils/io.py:130-154``); real
 BlueROV recordings commonly use ``rosbag record --lz4``. No lz4 library is
 assumed, so this module implements the subset of the LZ4 format that rosbag
@@ -14,7 +18,8 @@ uses, from the public format specifications:
 * XXH32 (needed to emit valid header checksums when writing).
 
 Decompression handles every descriptor flag roslz4 can set (block checksums
-and content checksums are validated structurally and skipped). Compression
+are skipped, the content checksum is verified); malformed or truncated input
+raises ``ValueError`` in both decoders. Compression
 is a greedy single-pass hash-chain matcher — not ratio-optimal, but formally
 valid LZ4 that any conforming decoder (including roslz4) accepts.
 """
@@ -22,6 +27,8 @@ valid LZ4 that any conforming decoder (including roslz4) accepts.
 from __future__ import annotations
 
 import struct
+
+from . import lz4_lib
 
 FRAME_MAGIC = 0x184D2204
 LEGACY_MAGIC = 0x184C2102
@@ -39,7 +46,15 @@ def _rotl(x: int, r: int) -> int:
 
 
 def xxh32(data: bytes, seed: int = 0) -> int:
-    """XXH32 of ``data`` (the checksum the LZ4 frame format uses)."""
+    """XXH32 of ``data`` (the checksum the LZ4 frame format uses): compiled
+    over more than 4 kB."""
+    if len(data) > 4096:
+        return lz4_lib.xxh32(data, seed)
+    return xxh32_plain(data, seed)
+
+
+def xxh32_plain(data: bytes, seed: int = 0) -> int:
+    """XXH32 in pure Python (the plain version)."""
     n = len(data)
     i = 0
     if n >= 16:
@@ -85,7 +100,22 @@ def xxh32(data: bytes, seed: int = 0) -> int:
 
 def decompress_block(src: bytes, max_out: int | None = None) -> bytes:
     """Decode one raw LZ4 block; with ``max_out`` (the frame's declared
-    block size bound) a longer output raises."""
+    block size bound) a longer output raises, and the compiled decoder
+    decodes it."""
+    if max_out is not None:
+        return lz4_lib.decode_block(src, max_out)
+    return decompress_block_plain(src)
+
+
+def decompress_block_plain(src: bytes, max_out: int | None = None) -> bytes:
+    """Decode one raw LZ4 block in pure Python (the plain version)."""
+    try:
+        return _decompress_block(src, max_out)
+    except IndexError:
+        raise ValueError("corrupt LZ4 block: sequence past input end") from None
+
+
+def _decompress_block(src: bytes, max_out: int | None) -> bytes:
     out = bytearray()
     i, n = 0, len(src)
     while i < n:
@@ -201,7 +231,27 @@ def compress_block(src: bytes) -> bytes:
 
 
 def decompress_frame(data: bytes) -> bytes:
-    """Decode an LZ4 frame (or legacy-frame) byte string."""
+    """Decode an LZ4 frame (or legacy-frame) byte string with the compiled
+    decoder."""
+    return lz4_lib.decode_frame(data)
+
+
+def decompress_frame_plain(data: bytes) -> bytes:
+    """Decode an LZ4 frame (or legacy-frame) byte string in pure Python (the
+    plain version)."""
+    try:
+        return _decompress_frame(data)
+    except (IndexError, struct.error):
+        raise ValueError("truncated LZ4 frame") from None
+
+
+def _block(data: bytes, pos: int, bsize: int) -> bytes:
+    if bsize > len(data) - pos:
+        raise ValueError("truncated LZ4 frame: block past input end")
+    return data[pos : pos + bsize]
+
+
+def _decompress_frame(data: bytes) -> bytes:
     (magic,) = struct.unpack_from("<I", data, 0)
     pos = 4
     if magic == LEGACY_MAGIC:
@@ -211,7 +261,8 @@ def decompress_frame(data: bytes) -> bytes:
             if bsize in (FRAME_MAGIC, LEGACY_MAGIC):
                 break  # next frame begins
             pos += 4
-            out += decompress_block(data[pos : pos + bsize], _LEGACY_BLOCK)
+            out += decompress_block_plain(_block(data, pos, bsize),
+                                          _LEGACY_BLOCK)
             pos += bsize
         return bytes(out)
     if magic != FRAME_MAGIC:
@@ -241,14 +292,15 @@ def decompress_frame(data: bytes) -> bytes:
             break  # end mark
         uncompressed = bsize >> 31
         bsize &= 0x7FFFFFFF
-        block = data[pos : pos + bsize]
+        block = _block(data, pos, bsize)
         pos += bsize
-        out += block if uncompressed else decompress_block(block, block_max)
+        out += block if uncompressed else decompress_block_plain(block,
+                                                                 block_max)
         if block_checksum:
             pos += 4
     if content_checksum:
         (want,) = struct.unpack_from("<I", data, pos)
-        if xxh32(bytes(out)) != want:
+        if xxh32_plain(bytes(out)) != want:
             raise ValueError("LZ4 content checksum mismatch")
     return bytes(out)
 

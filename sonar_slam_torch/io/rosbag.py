@@ -297,13 +297,18 @@ def _encode_record(header: dict[bytes, bytes], payload: bytes) -> bytes:
 
 
 def write_bag(path: str, connections: list[dict], messages: list[tuple],
-              compression: str = "none"):
-    """Write a single-chunk bag (``compression``: none | bz2 | lz4).
+              compression: str = "none", chunk_size: int | None = None):
+    """Write a bag (``compression``: none | bz2 | lz4): one chunk, or with
+    ``chunk_size`` a new chunk whenever one holds that many bytes, as
+    ``rosbag record --chunksize`` does (768 kB by default). The connection
+    records open the first chunk.
 
     connections: [{"id", "topic", "type", "definition"}]
     messages: [(conn_id, t_seconds, raw_payload_bytes)]
     """
-    chunk = b""
+    if compression not in ("none", "bz2", "lz4"):
+        raise ValueError(f"unknown compression {compression!r}")
+    chunks, records, size = [], [], 0
     for c in connections:
         conn_header = {
             b"op": bytes([OP_CONNECTION]),
@@ -318,8 +323,12 @@ def write_bag(path: str, connections: list[dict], messages: list[tuple],
                 b"message_definition": c["definition"].encode(),
             }
         )
-        chunk += _encode_record(conn_header, conn_payload)
+        records.append(_encode_record(conn_header, conn_payload))
+        size += len(records[-1])
     for cid, t, payload in messages:
+        if chunk_size is not None and size >= chunk_size:
+            chunks.append(b"".join(records))
+            records, size = [], 0
         secs = int(t)
         nsecs = int(round((t - secs) * 1e9))
         msg_header = {
@@ -327,7 +336,9 @@ def write_bag(path: str, connections: list[dict], messages: list[tuple],
             b"conn": struct.pack("<I", cid),
             b"time": struct.pack("<II", secs, nsecs),
         }
-        chunk += _encode_record(msg_header, payload)
+        records.append(_encode_record(msg_header, payload))
+        size += len(records[-1])
+    chunks.append(b"".join(records))
 
     with open(path, "wb") as f:
         f.write(MAGIC)
@@ -335,26 +346,25 @@ def write_bag(path: str, connections: list[dict], messages: list[tuple],
             b"op": bytes([OP_BAG_HEADER]),
             b"index_pos": struct.pack("<Q", 0),
             b"conn_count": struct.pack("<I", len(connections)),
-            b"chunk_count": struct.pack("<I", 1),
+            b"chunk_count": struct.pack("<I", len(chunks)),
         }
         # bag header record is conventionally padded to 4096 bytes
         rec = _encode_record(bag_header, b"")
         pad = 4096 - len(rec)
         bag_header[b"padding"] = b" " * max(pad - 12, 0)
         f.write(_encode_record(bag_header, b""))
-        raw_size = len(chunk)
-        if compression == "bz2":
-            chunk = bz2.compress(chunk)
-        elif compression == "lz4":
-            chunk = lz4_compress(chunk)
-        elif compression != "none":
-            raise ValueError(f"unknown compression {compression!r}")
-        chunk_header = {
-            b"op": bytes([OP_CHUNK]),
-            b"compression": compression.encode(),
-            b"size": struct.pack("<I", raw_size),
-        }
-        f.write(_encode_record(chunk_header, chunk))
+        for chunk in chunks:
+            raw_size = len(chunk)
+            if compression == "bz2":
+                chunk = bz2.compress(chunk)
+            elif compression == "lz4":
+                chunk = lz4_compress(chunk)
+            chunk_header = {
+                b"op": bytes([OP_CHUNK]),
+                b"compression": compression.encode(),
+                b"size": struct.pack("<I", raw_size),
+            }
+            f.write(_encode_record(chunk_header, chunk))
 
 
 # ----------------------------------------------------------------------

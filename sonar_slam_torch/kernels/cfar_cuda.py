@@ -12,7 +12,9 @@ gate fused in:
   counts the training cells whose ``tau * v`` lies below the pixel, which
   decides ``x > tau * kth`` exactly without selecting ``kth``.
 * ``cfar_os_kernel`` is OS with the threshold map (or any other ``tau``): it
-  selects the exact k-th smallest training cell.
+  selects the exact k-th smallest training cell from a window it keeps
+  sorted as it walks down each column (``cfar_os_split_kernel`` for the main
+  path's 40 cells at rank 10, ``cfar_os_window_kernel`` for any other).
 
 The plain version of both OS kernels is :func:`cfar_os_plain`, a sort; each
 kernel agrees with it bit for bit.
@@ -119,8 +121,9 @@ def _load():
             ctypes.c_int, ctypes.c_void_p,  # extend stream
         ]
         fn.restype = ctypes.c_int
-        lib.cfar_max_half_window.argtypes = []
-        lib.cfar_max_half_window.restype = ctypes.c_int
+        for name in ("cfar_max_half_window", "cfar_os_max_half_window"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -276,7 +279,9 @@ def cfar_detect(
         raise ValueError("frame stack too large for one launch")
     lib = _load()
     hw = train_hs + guard_hs
-    if kernel != "os_select" and hw > lib.cfar_max_half_window():
+    widest = (lib.cfar_os_max_half_window() if kernel == "os_select"
+              else lib.cfar_max_half_window())
+    if hw > widest:
         raise ValueError(f"train_hs + guard_hs = {hw} is too wide for the "
                          f"kernel's tile in shared memory")
     det = torch.empty(imgs.shape, dtype=torch.bool, device=imgs.device)

@@ -8,7 +8,10 @@
 //                        feature path); replaces the mask of
 //                        cfar_pallas.py::_cfar_os_kernel.
 //   cfar_os_kernel       OS with the threshold map, or any other tau: the
-//                        exact selection of the k-th smallest cell.
+//                        exact selection of the k-th smallest cell, from a
+//                        window kept sorted down each column
+//                        (cfar_os_split_kernel for the main path's window,
+//                        cfar_os_window_kernel for any other).
 //
 // Every pixel of a (B, R, C) float32 stack of polar sonar frames has
 // 2 * train_hs training cells in its column: rows r - j (leading) and r + j
@@ -545,82 +548,238 @@ __global__ void __launch_bounds__(TILE_THREADS, 5)
 // cfar_os_kernel: replaces sonar_slam_tpu/kernels/cfar_pallas.py::
 // _cfar_os_kernel where the threshold map is wanted (or tau <= 0).
 //
-// For every pixel, kth = the k-th smallest (0-indexed) of its 2 * train_hs
+// For every pixel, kth = the rank-th smallest (0-indexed) of its 2 * train_hs
 // training cells, thr = tau * kth, and det as above.
 //
 // Selection. The Pallas kernel brackets kth by a counting bisection over
 // [-1, 255] (8 integer steps, then os_float_refine_steps continuous ones): an
 // upper bound within 256 * 2^-22 of kth on float images. Here kth is the
-// EXACT order statistic, found by a rank count: cell i holds kth when
-// #{cells < v_i} <= k < #{cells <= v_i}. The result is one of the inputs, so
-// it equals the sorted window's k-th entry bit for bit (what the XLA path,
-// the reference's nth_element and the plain PyTorch version compute) and the
-// Pallas kernel's os_float_refine_steps has no counterpart here. Ties select
-// the same value whichever tied cell is found. NaN cells are never selected;
-// when k reaches them kth stays NaN, as the sort puts NaN last.
+// EXACT order statistic, read from the window kept sorted, so it is one of
+// the inputs and equals the sorted window's rank-th entry bit for bit (what
+// the XLA path, the reference's nth_element and the plain PyTorch version
+// compute); os_float_refine_steps has no counterpart. The window is sorted as
+// order-preserving unsigned keys: a float's bits with the sign bit flipped
+// (non-negative) or all bits flipped (negative), every NaN as the key of the
+// canonical NaN, above +inf, so NaN sorts last, as torch.sort puts it. Keys
+// decode back to the float exactly (a NaN to the canonical NaN). -0 sorts
+// before +0, where the sort finds them equal: kth may then differ from the
+// plain version's in the sign of a zero, never in value.
 //
-// Design. One thread per pixel, neighbouring threads on neighbouring
-// columns, so each of the 2 * train_hs loads of a warp is one coalesced
-// line. The window size is a template parameter for the main path's
-// train_hs = 20 (40 cells): the cells and the 40 x 40 comparisons unroll
-// into registers. Any other window up to OS_MAX_CELLS cells takes the
-// generic instantiation (NW = 0), whose runtime-sized array lives in local
-// memory. Bound: compute, 2 * train_hs * 2 * train_hs compares per pixel
-// (1600 at the main path's window), against one image read and one mask
-// write. It is not on the feature path, which takes cfar_os_mask_kernel.
+// Design. The first design gave each pixel a thread that re-read its 40 cells
+// from device memory and counted, for each cell, the cells below it: 3,200
+// compares a pixel, 130 times the bytes bound. Moving down a column, a
+// pixel's window drops two cells and gains two, so here a thread walks a
+// strip of OS_STRIP consecutive rows of one column and keeps the window
+// sorted in registers across them:
+//   * a block stages its column stripe (32 columns x OS_BLOCK_ROWS rows and
+//     hw halo rows above and below, row indices clamped: the extend edge's
+//     replication) in shared memory as keys, each converted once; a warp
+//     holds 32 adjacent columns, so every shared read is conflict-free and
+//     every device load and store is one coalesced line;
+//   * at the strip's first row the window is sorted once; at each next row
+//     one predicated deletion (b[i] = a[i] >= d ? a[i+1] : a[i]) and one
+//     insertion (a[i] = max(b[i-1], min(b[i], e))) per dropped and gained
+//     cell, each about 2 operations an entry, update it in place.
+// The main path's window (train_hs 20, rank 10; cfar_os_split_kernel) keeps
+// its leading and lagging halves as two sorted arrays of 20, each updated
+// with one deletion and one insertion a row (4 x 20 operations each), and
+// reads the rank-th smallest of their union as
+//     kth = min over i + j = rank + 1 of max(L[i-1], G[j-1])
+// (the smallest rank + 1 cells are a prefix of each half; any other split's
+// largest cell is no smaller): 21 operations. About 190 integer operations a
+// pixel in place of 3,200 compares. Every other rank of that window
+// (cfar_os_window_kernel<40>), and every other window up to OS_MAX_CELLS
+// cells (cfar_os_window_kernel<OS_MAX_CELLS>, padded above with keys past
+// every float's), keeps one sorted array of CAP keys, sorts it at the
+// strip's first row by insertion, updates it with two deletions and two
+// insertions a row and reads entry rank. Bound: the
+// integer operations (min, max, compare, select) at the card's integer rate,
+// not the bytes; PERF.md has the measured time beside both.
 
-template <int NW>
-__global__ void cfar_os_kernel(const float* __restrict__ img,
-                               bool* __restrict__ det,
-                               float* __restrict__ thr_out,
-                               int R, int C, long long total,
-                               int train_hs, int guard_hs, int rank, float tau,
-                               int use_gate, float gate, int extend) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long plane = (long long)R * C;
-  const long long b = idx / plane;
-  const long long rem = idx - b * plane;
-  const int r = (int)(rem / C);
-  const int c = (int)(rem - (long long)r * C);
-  const float* col = img + b * plane + c;
+constexpr int OS_STRIP = 32;                      // rows a thread walks
+constexpr int OS_WARPS = 8;                       // strips a block stacks
+constexpr int OS_BLOCK_ROWS = OS_STRIP * OS_WARPS;
+constexpr int OS_THREADS = 32 * OS_WARPS;
+constexpr uint32_t NAN_KEY = 0xFFC00000u;  // the canonical NaN's key
+constexpr uint32_t PAD_KEY = 0xFFFFFFFFu;  // above every float's key
 
-  // with NW > 0 the bounds are compile-time and the loops unroll fully
-  const int th = NW > 0 ? NW / 2 : train_hs;
-  const int n = 2 * th;
-  float v[NW > 0 ? NW : OS_MAX_CELLS];
-#pragma unroll(NW > 0 ? NW / 2 : 1)
-  for (int j = 0; j < th; ++j) {
-    const int off = guard_hs + 1 + j;
-    int rl = r - off;
-    rl = rl < 0 ? 0 : rl;
-    int rg = r + off;
-    rg = rg > R - 1 ? R - 1 : rg;
-    v[2 * j] = col[(long long)rl * C];
-    v[2 * j + 1] = col[(long long)rg * C];
+__device__ __forceinline__ uint32_t float_key(float v) {
+  const uint32_t u = __float_as_uint(v);
+  if (v != v) return NAN_KEY;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+__device__ __forceinline__ uint32_t umin(uint32_t a, uint32_t b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ uint32_t umax(uint32_t a, uint32_t b) {
+  return a > b ? a : b;
+}
+
+// Sorted a[0, N): remove one entry equal to d (present), leaving PAD_KEY at
+// the top. Entries from d's first occurrence on are >= d and shift down.
+template <int N>
+__device__ __forceinline__ void sorted_delete(uint32_t (&a)[N], uint32_t d) {
+#pragma unroll
+  for (int i = 0; i < N - 1; ++i) a[i] = a[i] >= d ? a[i + 1] : a[i];
+  a[N - 1] = PAD_KEY;
+}
+
+// Sorted a[0, N) with a[N-1] free (PAD_KEY): insert e. Entry i becomes the
+// median of the old a[i-1], a[i] and e; walking down reads old values.
+template <int N>
+__device__ __forceinline__ void sorted_insert(uint32_t (&a)[N], uint32_t e) {
+#pragma unroll
+  for (int i = N - 1; i > 0; --i) a[i] = umax(a[i - 1], umin(a[i], e));
+  a[0] = umin(a[0], e);
+}
+
+// Fills the block's key stripe: shared row i, column l holds the key of
+// image row clamp(R0 - hw + i), column c0 + l (0 beyond C), for i in
+// [0, OS_BLOCK_ROWS + 2 * hw). The caller synchronises.
+__device__ __forceinline__ void stage_keys(const float* __restrict__ frame,
+                                           uint32_t* keys, int R, int C,
+                                           int R0, int c0, int hw) {
+  const int lane = threadIdx.x;
+  const int c = c0 + lane;
+  const int rows = OS_BLOCK_ROWS + 2 * hw;
+#pragma unroll 4
+  for (int i = threadIdx.y; i < rows; i += OS_WARPS) {
+    const int r = clamp_row(R0 - hw + i, R);
+    keys[i * 32 + lane] =
+        c < C ? float_key(__ldg(frame + (long long)r * C + c)) : 0u;
   }
+}
 
-  float kth = __int_as_float(0x7fc00000);  // NaN
-#pragma unroll(NW > 0 ? NW : 1)
-  for (int i = 0; i < n; ++i) {
-    int less = 0;
-    int leq = 0;
-#pragma unroll(NW > 0 ? NW : 1)
-    for (int j = 0; j < n; ++j) {
-      less += v[j] < v[i];
-      leq += v[j] <= v[i];
-    }
-    if (less <= rank && rank < leq) kth = v[i];
-  }
-  const float thr = __fmul_rn(tau, kth);
-
-  const float x = col[(long long)r * C];
-  const int hw = train_hs + guard_hs;
-  const bool valid = extend ? true : (r >= hw && r < R - hw);
+// Threshold, mask and threshold map of the pixel at row r, column c.
+__device__ __forceinline__ void os_finish(uint32_t kth_key, uint32_t x_key,
+                                          bool* __restrict__ det,
+                                          float* __restrict__ thr_out,
+                                          long long idx, int r, int R, int hw,
+                                          float tau, int use_gate, float gate,
+                                          int extend) {
+  const float thr = __fmul_rn(tau, key_float(kth_key));
+  const float x = key_float(x_key);
+  const bool valid = extend || (r >= hw && r < R - hw);
   bool d = valid && (x > thr);
   if (use_gate) d = d && (x > gate);
   det[idx] = d;
   if (thr_out != nullptr) thr_out[idx] = valid ? thr : 0.0f;
+}
+
+// The main path's window: train_hs = TH, rank = RANK (template), any guard.
+template <int TH, int RANK>
+__global__ void __launch_bounds__(OS_THREADS)
+    cfar_os_split_kernel(const float* __restrict__ img, bool* __restrict__ det,
+                         float* __restrict__ thr_out, int R, int C,
+                         int guard_hs, float tau, int use_gate, float gate,
+                         int extend) {
+  extern __shared__ uint32_t os_keys[];
+  const int g = guard_hs;
+  const int hw = TH + g;
+  const long long plane = (long long)R * C;
+  const int R0 = blockIdx.y * OS_BLOCK_ROWS;
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  stage_keys(img + blockIdx.z * plane, os_keys, R, C, R0, blockIdx.x * 32, hw);
+  __syncthreads();
+  const int r0 = R0 + threadIdx.y * OS_STRIP;
+  if (c >= C || r0 >= R) return;
+  // col[r * 32]: the key of image row r (clamped) in this thread's column
+  const uint32_t* col = os_keys + threadIdx.x + (hw - R0) * 32;
+
+  // leading cells rows r-hw ... r-g-1, lagging r+g+1 ... r+hw, at row r0
+  uint32_t L[TH], G[TH];
+#pragma unroll
+  for (int j = 0; j < TH; ++j) {
+    L[j] = col[(r0 - hw + j) * 32];
+    G[j] = col[(r0 + g + 1 + j) * 32];
+  }
+  // odd-even transposition sort of both halves
+#pragma unroll
+  for (int round = 0; round < TH; ++round) {
+#pragma unroll
+    for (int i = round & 1; i + 1 < TH; i += 2) {
+      const uint32_t lo = umin(L[i], L[i + 1]), hi = umax(L[i], L[i + 1]);
+      L[i] = lo;
+      L[i + 1] = hi;
+      const uint32_t lo2 = umin(G[i], G[i + 1]), hi2 = umax(G[i], G[i + 1]);
+      G[i] = lo2;
+      G[i + 1] = hi2;
+    }
+  }
+  const int rows = R - r0 < OS_STRIP ? R - r0 : OS_STRIP;
+  const long long base = blockIdx.z * plane + (long long)r0 * C + c;
+  for (int s = 0; s < rows; ++s) {
+    const int r = r0 + s;
+    if (s > 0) {
+      // row r's leading window drops row r-1-hw and gains r-g-1; its
+      // lagging window drops r+g and gains r+hw
+      sorted_delete(L, col[(r - 1 - hw) * 32]);
+      sorted_insert(L, col[(r - g - 1) * 32]);
+      sorted_delete(G, col[(r + g) * 32]);
+      sorted_insert(G, col[(r + hw) * 32]);
+    }
+    // the (RANK+1)-th smallest of L and G together
+    uint32_t kth = PAD_KEY;
+#pragma unroll
+    for (int i = 0; i <= RANK + 1; ++i) {
+      const int j = RANK + 1 - i;
+      if (i > TH || j > TH) continue;
+      const uint32_t m = i == 0 ? G[j - 1]
+                                : (j == 0 ? L[i - 1] : umax(L[i - 1], G[j - 1]));
+      kth = umin(kth, m);
+    }
+    os_finish(kth, col[r * 32], det, thr_out, base + (long long)s * C, r, R,
+              hw, tau, use_gate, gate, extend);
+  }
+}
+
+// Any window of 2 * train_hs <= CAP cells and any rank: one sorted array.
+template <int CAP>
+__global__ void __launch_bounds__(OS_THREADS)
+    cfar_os_window_kernel(const float* __restrict__ img,
+                          bool* __restrict__ det, float* __restrict__ thr_out,
+                          int R, int C, int train_hs, int guard_hs, int rank,
+                          float tau, int use_gate, float gate, int extend) {
+  extern __shared__ uint32_t os_keys[];
+  const int g = guard_hs;
+  const int hw = train_hs + g;
+  const long long plane = (long long)R * C;
+  const int R0 = blockIdx.y * OS_BLOCK_ROWS;
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  stage_keys(img + blockIdx.z * plane, os_keys, R, C, R0, blockIdx.x * 32, hw);
+  __syncthreads();
+  const int r0 = R0 + threadIdx.y * OS_STRIP;
+  if (c >= C || r0 >= R) return;
+  const uint32_t* col = os_keys + threadIdx.x + (hw - R0) * 32;
+
+  uint32_t w[CAP];
+#pragma unroll
+  for (int i = 0; i < CAP; ++i) w[i] = PAD_KEY;
+  for (int j = g + 1; j <= hw; ++j) {
+    sorted_insert(w, col[(r0 - j) * 32]);
+    sorted_insert(w, col[(r0 + j) * 32]);
+  }
+  const int rows = R - r0 < OS_STRIP ? R - r0 : OS_STRIP;
+  const long long base = blockIdx.z * plane + (long long)r0 * C + c;
+  for (int s = 0; s < rows; ++s) {
+    const int r = r0 + s;
+    if (s > 0) {
+      sorted_delete(w, col[(r - 1 - hw) * 32]);
+      sorted_insert(w, col[(r - g - 1) * 32]);
+      sorted_delete(w, col[(r + g) * 32]);
+      sorted_insert(w, col[(r + hw) * 32]);
+    }
+    uint32_t kth = PAD_KEY;
+#pragma unroll
+    for (int i = 0; i < CAP; ++i) kth = i == rank ? w[i] : kth;
+    os_finish(kth, col[r * 32], det, thr_out, base + (long long)s * C, r, R,
+              hw, tau, use_gate, gate, extend);
+  }
 }
 
 // Dynamic shared bytes of a tile for half-window hw (the lists are static).
@@ -712,23 +871,53 @@ extern "C" int cfar_os_mask_launch(const void* img, void* det, int B, int R,
   return (int)cudaGetLastError();
 }
 
+// The widest half-window the OS selection kernels' stripe takes.
+extern "C" int cfar_os_max_half_window() {
+  return (MAX_BLOCK_BYTES / (32 * 4) - OS_BLOCK_ROWS) / 2;
+}
+
 extern "C" int cfar_os_launch(const void* img, void* det, void* thr,
                               int B, int R, int C, int train_hs, int guard_hs,
                               int rank, float tau, int use_gate, float gate,
                               int extend, void* stream) {
-  const long long total = (long long)B * R * C;
-  if (2 * train_hs > OS_MAX_CELLS) return (int)cudaErrorInvalidValue;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  const int n = 2 * train_hs;
+  const int hw = train_hs + guard_hs;
+  if (n > OS_MAX_CELLS || rank < 0 || rank >= n ||
+      hw > cfar_os_max_half_window())
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * R * C == 0) return 0;
+  const int smem = (OS_BLOCK_ROWS + 2 * hw) * 32 * 4;
   cudaStream_t s = (cudaStream_t)stream;
-  if (train_hs == 20) {
-    cfar_os_kernel<40><<<blocks, threads, 0, s>>>(
-        (const float*)img, (bool*)det, (float*)thr, R, C, total, train_hs,
-        guard_hs, rank, tau, use_gate, gate, extend);
-  } else {
-    cfar_os_kernel<0><<<blocks, threads, 0, s>>>(
-        (const float*)img, (bool*)det, (float*)thr, R, C, total, train_hs,
+  const long long plane = (long long)R * C;
+  const dim3 block(32, OS_WARPS);
+  if (train_hs == 20 && rank == 10) {
+    auto k = cfar_os_split_kernel<20, 10>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+    for (int b0 = 0; b0 < B; b0 += MAX_FRAMES) {
+      const int nb = B - b0 < MAX_FRAMES ? B - b0 : MAX_FRAMES;
+      const dim3 grid((C + 31) / 32, (R + OS_BLOCK_ROWS - 1) / OS_BLOCK_ROWS,
+                      nb);
+      k<<<grid, block, smem, s>>>(
+          (const float*)img + b0 * plane, (bool*)det + b0 * plane,
+          thr == nullptr ? nullptr : (float*)thr + b0 * plane, R, C,
+          guard_hs, tau, use_gate, gate, extend);
+    }
+    return (int)cudaGetLastError();
+  }
+  void (*k)(const float*, bool*, float*, int, int, int, int, int, float, int,
+            float, int) =
+      n == 40 ? cfar_os_window_kernel<40>
+              : cfar_os_window_kernel<OS_MAX_CELLS>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  for (int b0 = 0; b0 < B; b0 += MAX_FRAMES) {
+    const int nb = B - b0 < MAX_FRAMES ? B - b0 : MAX_FRAMES;
+    const dim3 grid((C + 31) / 32, (R + OS_BLOCK_ROWS - 1) / OS_BLOCK_ROWS, nb);
+    k<<<grid, block, smem, s>>>(
+        (const float*)img + b0 * plane, (bool*)det + b0 * plane,
+        thr == nullptr ? nullptr : (float*)thr + b0 * plane, R, C, train_hs,
         guard_hs, rank, tau, use_gate, gate, extend);
   }
   return (int)cudaGetLastError();

@@ -193,6 +193,65 @@ def test_os_kernels_on_ragged_shapes(card, shape, edge, gate):
         assert torch.equal(sdet, pdet) and _equal_nan(sthr, pthr), (t, rank)
 
 
+def _selection_pings(card, shape):
+    """Float pings of a ragged shape with NaN, +inf, -inf, -0.0 and a run of
+    tied cells, and an integer-valued copy (ties everywhere)."""
+    x = _pings(17, shape)
+    x[0, 3, 1] = np.nan
+    x[-1, shape[1] // 2, shape[2] - 1] = np.inf
+    x[0, 10, 5] = -np.inf
+    x[-1, 5:9, 3] = -0.0
+    x[0, 20:40, 7] = 5.0
+    imgs = torch.as_tensor(x, device=card)
+    return imgs, torch.round(imgs)
+
+
+# (train_hs, rank): the main path's 40-cell window at ranks 0, 10 (the
+# register-sorted split kernel) and 39, and generic windows of 14 and 128
+SELECTION_WINDOWS = [(20, 0), (20, 10), (20, 39), (7, 0), (7, 13), (64, 0),
+                     (64, 64), (64, 127)]
+
+
+@pytest.mark.cuda
+@RAGGED
+@pytest.mark.parametrize("train_hs,rank", SELECTION_WINDOWS)
+@pytest.mark.parametrize("tau", [0.0, -1.0, 1.6, "factor"])
+def test_os_selection_kernel_bit_for_bit(card, shape, train_hs, rank, tau):
+    """The sorted sliding window (cfar_os_kernel) against the sort: mask and
+    threshold map, every edge and gate, float and integer pings."""
+    from sonar_slam_torch.kernels.cfar_factors import threshold_factor_os
+
+    if tau == "factor":
+        tau = threshold_factor_os(2 * train_hs, max(rank, 1), 0.1)
+    guard = 2 if train_hs == 64 else 5
+    for imgs in _selection_pings(card, shape):
+        for edge in ("strict", "extend"):
+            for gate in (None, 65.0):
+                before = _launches("os_select")
+                det, thr = cfar_detect(imgs, train_hs, guard, tau, "OS", gate,
+                                       edge, with_threshold=True, rank=rank)
+                pdet, pthr = cfar_os_plain(imgs, train_hs, guard, rank, tau,
+                                           gate, edge)
+                torch.cuda.synchronize()
+                assert _launches("os_select") == (before[0] + 1, before[1] + 1)
+                assert torch.equal(det, pdet), (edge, gate)
+                assert _equal_nan(thr, pthr), (edge, gate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [0, 10, 39])
+def test_os_selection_kernel_at_the_main_path_shape(card, rank):
+    """(128, 512, 256), extend, gate 65: two row blocks a column, the main
+    path's call with the threshold map."""
+    imgs = torch.as_tensor(np.clip(_pings(23, (128, 512, 256)), 0, 255),
+                           device=card)
+    det, thr = cfar_detect(imgs, 20, 5, 1.6, "OS", 65.0, "extend",
+                           with_threshold=True, rank=rank)
+    pdet, pthr = cfar_os_plain(imgs, 20, 5, rank, 1.6, 65.0, "extend")
+    torch.cuda.synchronize()
+    assert torch.equal(det, pdet) and torch.equal(thr, pthr)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(card):
     imgs = torch.as_tensor(_pings(6, (2, 64, 32)), device=card)

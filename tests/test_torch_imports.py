@@ -57,8 +57,39 @@ def test_port_imports_no_jax():
                 "cli.sharded_replay", "cli.error_budget", "cli.multi_seed",
                 "cli.yscale_lane", "cli.accuracy_sweep", "cli.map_probe",
                 "cli.frontier_coverage_probe", "cli.run_repeats",
-                "cli.plot_runs"):
+                "cli.plot_runs", "io.lz4_lib"):
         assert "sonar_slam_torch." + new in names, new
+
+
+_LZ4_SCRIPT = r"""
+import importlib.abc, sys
+sys.path.insert(0, {root!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+from sonar_slam_torch.io import lz4, lz4_lib
+lz4_lib._load()
+raw = bytes(range(256)) * 64
+assert lz4.decompress_frame(lz4.compress_frame(raw)) == raw
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu")
+               for m in sys.modules)
+print("loaded", lz4_lib.build())
+"""
+
+
+def test_lz4_library_loads_without_jax():
+    """Building, loading and calling the compiled LZ4 decoder imports no
+    JAX and nothing of the JAX package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _LZ4_SCRIPT.format(root=ROOT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("loaded ")
 
 
 _CLI_SCRIPT = r"""

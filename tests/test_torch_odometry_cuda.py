@@ -10,7 +10,11 @@ which the ill-conditioned loops downstream turned into another ATE (no
 other stage of that run moved; 300 back-to-back scans on an idle card did
 not reproduce it). ``gyro_integrate`` and the Kalman pose integral scan
 rows instead. On the CPU every scan is sequential, so the rows give the
-bits the single row gave.
+bits the single row gave. ``dead_reckoning_scan`` still sums x and y as
+single rows: a 480 s survey's 2,398 DVL ticks fit in two of CUB's tiles,
+whose look-back has one order; an hour's 18,000 do not. Its CPU output is
+pinned bit for bit (``tests/golden/dr_small_survey.npz``) so that a change
+of the card's scan cannot move it.
 
 This file imports no JAX: ``python -m pytest --noconftest
 tests/test_torch_odometry_cuda.py`` on a card; without one every test
@@ -19,13 +23,30 @@ tests/test_torch_odometry_cuda.py``) it prints how often a single-row scan
 and a two-row scan of the same numbers repeat their first result.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from sonar_slam_torch.estimators import GyroConfig, gyro_integrate
+from sonar_slam_torch.estimators import (
+    DRConfig,
+    DRTicks,
+    GyroConfig,
+    dead_reckoning_scan,
+    dead_reckoning_with_basis_scan,
+    dvl_basis_scan,
+    gyro_integrate,
+)
+from sonar_slam_torch.io.dataset import SensorStreams, build_dr_ticks
 from sonar_slam_torch.io.simulate import SimConfig, simulate_bag
 from sonar_slam_torch.pipeline import odometry
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "dr_small_survey.npz")
+# bench.py --small's survey (chip_smoke.small_config)
+SMALL_SURVEY = SimConfig(duration=90.0, speed=0.5, sonar_rate=1.0,
+                         num_ranges=192, num_bearings=96, loop_radius=10.0,
+                         imu_rate=20.0, seed=0)
 
 # bench.py's full survey, rendered at 64 x 32: the front ends read no ping,
 # and the sensor streams do not depend on the image size
@@ -64,6 +85,53 @@ def test_front_end_repeats_bit_for_bit(card, frontend):
     assert all(torch.equal(p, poses[0]) for p in poses[1:])
 
 
+def _long_ticks(n: int, device, seed: int = 0) -> DRTicks:
+    """An hour of DVL ticks at 5 Hz: a wandering heading, speeds around
+    0.5 m/s with a few over-speed glitches, some invalid ticks."""
+    rng = np.random.default_rng(seed)
+    time = (np.arange(n) * 0.2).astype(np.float32)
+    vel = (rng.standard_normal((n, 3)) * 0.05
+           + [0.5, 0.02, 0.0]).astype(np.float32)
+    vel[rng.choice(n, 20, replace=False), 0] = 1.6
+    euler = np.zeros((n, 3), np.float32)
+    euler[:, :2] = rng.standard_normal((n, 2)) * 0.01
+    euler[:, 2] = np.cumsum(rng.standard_normal(n) * 0.01)
+    valid = np.ones(n, bool)
+    valid[rng.choice(n, 50, replace=False)] = False
+    arrs = {"time": time, "vel": vel, "euler": euler,
+            "gyro_yaw": euler[:, 2].copy(),
+            "depth": (2.0 + rng.standard_normal(n) * 0.01).astype(np.float32),
+            "valid": valid}
+    return DRTicks(**{k: torch.as_tensor(v, device=device)
+                      for k, v in arrs.items()})
+
+
+def _small_survey_ticks():
+    bag = simulate_bag(SMALL_SURVEY)
+    return build_dr_ticks(SensorStreams(
+        imu_time=bag.imu_time, imu_rpy=bag.imu_rpy, dvl_time=bag.dvl_time,
+        dvl_vel=bag.dvl_vel, depth_time=bag.depth_time, depth=bag.depth),
+        torch.device("cpu")).ticks
+
+
+def _dr_outputs(ticks):
+    poses, basis = dead_reckoning_with_basis_scan(ticks, DRConfig(roll_offset=0.0))
+    return {"poses_roll0": dead_reckoning_scan(ticks, DRConfig(roll_offset=0.0)),
+            "poses_default": dead_reckoning_scan(ticks, DRConfig()),
+            "basis_poses": poses, "basis": basis}
+
+
+def test_dead_reckoning_on_the_cpu_is_unchanged_bit_for_bit():
+    """Dead reckoning and its basis lanes on the CPU give the stored bits
+    (sequential sums), whatever form the card's scans take."""
+    ticks = _small_survey_ticks()
+    golden = np.load(GOLDEN)
+    for name, got in _dr_outputs(ticks).items():
+        assert np.array_equal(got.numpy(), golden[name]), name
+    assert np.array_equal(dvl_basis_scan(ticks, DRConfig(roll_offset=0.0)).numpy(),
+                          golden["basis"])
+
+
 if __name__ == "__main__":
     dev = torch.device("cuda", 0)
     for n in (2400, 24000):
@@ -77,3 +145,23 @@ if __name__ == "__main__":
               f"in {d_one} of 300 runs, a two-row scan in {d_rows} of 300; "
               f"the two forms {float((rows[0] - one).abs().max()):.3e} apart "
               f"({torch.cuda.get_device_name(0)})")
+    # dead reckoning as it is (one lane: single-row sums) and as rows (two
+    # identical lanes: ATen's row scan), on an hour of ticks and on the
+    # small survey's, each against the CPU's sequential sums
+    from sonar_slam_torch.estimators.dead_reckoning import _dr_lanes
+
+    cfg = DRConfig(roll_offset=0.0)
+    for name, ticks in (("18000 DR ticks", _long_ticks(18000, dev)),
+                        ("the small survey's DR ticks", DRTicks(*(
+                            v.to(dev) for v in _small_survey_ticks())))):
+        two = torch.ones((2, 3), device=dev)
+        forms = {"single-row": lambda: dead_reckoning_scan(ticks, cfg),
+                 "row": lambda: _dr_lanes(ticks, cfg, two)[0]}
+        cpu = dead_reckoning_scan(DRTicks(*(v.cpu() for v in ticks)), cfg)
+        for form, run in forms.items():
+            first = run()
+            diff = sum(not torch.equal(run(), first) for _ in range(300))
+            gap = float((first.cpu() - cpu)[:, :2].abs().max())
+            print(f"{name}: the {form} scan differs from its first result in "
+                  f"{diff} of 300 runs; its positions lie {gap:.3e} m from "
+                  f"the CPU's")
