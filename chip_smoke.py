@@ -24,7 +24,8 @@ the script exits non-zero without printing the result line:
    L2), in the order plain, kernel, kernel, plain; then the threshold path,
    a call whose gate no pixel passes (no window arithmetic: the tile's
    floor), and one PyTorch call that computes the window statistic alone
-   as a yardstick (``conv2d`` for the sums, ``kthvalue`` for OS). Each kernel's
+   as a yardstick (``conv2d`` for the sums, ``kthvalue`` for OS, at
+   ranks 10 and 0). Each kernel's
    bound is its bytes (one image read, one mask write) over the card's
    memory rate, or its operations over the float32 rate if that is larger;
 4. the SOCA slice: ``pipeline.replay`` at bench.py's full configuration
@@ -41,10 +42,13 @@ the script exits non-zero without printing the result line:
 6. reference, refinement off: the small configuration (bench.py --small)
    on the card, twice, stage by stage against the port on the CPU and as a
    whole against the JAX package's results for the same input
-   (tests/golden/small_norefine_traj.npz); see ``check_small``;
+   (tests/golden/small_norefine_traj.npz, and
+   tests/golden/small_norefine_traj_port_dr_rows.npz: JAX fed the card's
+   own dead-reckoning poses); see ``check_small``;
 7. reference, refinement on: the small configuration with refinement
-   against the JAX package's result (tests/golden/small_traj.npz), twice;
-   see ``check_small_refine``;
+   against the JAX package's results (tests/golden/small_traj.npz, and
+   tests/golden/small_traj_port_dr_rows.npz: JAX fed the card's own
+   dead-reckoning poses), twice; see ``check_small_refine``;
 8. the FOG-gyro front end: phase 4's survey and configuration through
    ``replay(frontend="dr_gyro")``, with the launch counters reset just
    before. Checks the odometry at the pings and the keyframe pings against
@@ -102,7 +106,17 @@ the script exits non-zero without printing the result line:
    ``cli.frontier_coverage_probe --alg OS`` (the OS mask kernel); (f)
    ``cli.run_repeats`` with two ``cli.replay`` runs in subprocesses and
    ``cli.plot_runs.trajectory_spread`` over them, which must be 0.0; see
-   ``run_multi_seed`` to ``run_repeats``.
+   ``run_multi_seed`` to ``run_repeats``;
+15. the node API: (a) phase 4's survey through ``dead_reckoning_step``
+   one tick a call, each pose read back to the host, against
+   ``dead_reckoning_scan`` on the card (positions within DR_STEP_ATOL_M,
+   the same keyframes), with the per-tick latency and launches logged;
+   (b) ``Smoother``'s loop-closure and marginal-covariance cases against
+   the CPU; (c) ``slam_scan`` against ``slam_scan_padded`` on phase 6's
+   keyframes with an interior slot invalid, bit for bit; (d)
+   ``voxel_downsample_with_keys`` and ``density_filter`` on phase 4's
+   first keyframe clouds against the CPU; see ``run_dr_node`` to
+   ``run_cloud_api``.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -177,17 +191,20 @@ DUAL_Z_BAND_M = 5e-3
 BENCH_R05_DUAL = {"z_rmse_cm": 4.15, "z_points": 922}
 # phase 12: the CLI on phase 4's survey with the YAML configuration
 # (keyframes, loops, ATE m and deg, rounded as for phase 4): the port's own
-# first result on an H100 80GB HBM3 (700 W); no JAX run of this
-# configuration at full size exists. The keyframes are phase 4's (the gate
-# sees the same odometry and thresholds).
-CLI_EXPECTED = (73, 30, 0.2615, 0.652)
+# result on an H100 80GB HBM3 (700 W) since dead reckoning scans rows; no
+# JAX run of this configuration at full size exists. The keyframes are
+# phase 4's (the gate sees the same odometry and thresholds). Phases 12,
+# 13a, 13b and 14c-14e were re-pinned when the DR scan became rows: their
+# ill-conditioned loops turn its float32-ulp odometry move into other
+# results (old and new values: PERF.md section 6).
+CLI_EXPECTED = (73, 31, 0.2589, 0.661)
 # phase 12: the grid the CLI builds keyframe by keyframe against a full
 # repaint, as a share of the observed cells whose method-1 value may differ
 # (each keyframe's cells are divided exactly in the one and by the
 # reciprocal in the other; on the CPU none of 30,444 and 6 of 31,136
 # differ, tests/test_torch_cli.py and tests/test_torch_occupancy.py)
 CLI_REPAINT_SHARE = 0.002
-# phase 13: the port's own first results on an H100 80GB HBM3 (700 W), as for
+# phase 13: the port's own results on an H100 80GB HBM3 (700 W), as for
 # phases 4 and 12 (no JAX run of these on a card exists; on the CPU the three
 # CLIs are held to the JAX scripts at shorter durations by
 # tests/test_torch_{parallel,multi_robot,sharded_replay}.py): the sweep's
@@ -195,15 +212,15 @@ CLI_REPAINT_SHARE = 0.002
 # loops, proposals, PCM accepts, clique size, merged ATE m rounded to 0.1
 # mm) and the large-capacity replay's (keyframes, loops, ATE m)
 SWEEP_LANES = 8
-SWEEP_EXPECTED = (19, [6, 6, 6, 6, 8, 8, 8, 8], 0.3014)
-TWO_ROBOT_EXPECTED = ([18, 19], [9, 4], 5, 5, 5, 0.0568)
+SWEEP_EXPECTED = (19, [5, 5, 5, 5, 9, 9, 9, 9], 0.2429)
+TWO_ROBOT_EXPECTED = ([18, 19], [9, 4], 5, 4, 4, 0.0746)
 SHARDED_EXPECTED = (13, 4, 0.0496)
 # phase 13c replays a 60 s survey: on the card the 90 s default's loops
 # are ill-conditioned in the capacity (K 1024 closes 9 loops, K 128 eight;
 # python tests/test_torch_sharded_replay.py cuda), so --check would fail
 # there; at 60 s the two capacities agree within 1.9e-6 m
 SHARDED_DURATION = "60"
-# phase 14: the accuracy CLIs. The pins are the port's own first results on
+# phase 14: the accuracy CLIs. The pins are the port's own results on
 # an H100 80GB HBM3 (700 W), exact as printed (the CLIs' own rounding), as for
 # phases 4, 12 and 13: no JAX run of these on a card exists, and the full
 # size is not run on a host CPU. On the CPU the small configurations are
@@ -219,8 +236,8 @@ YSCALE_EXPECTED = ([1.02851, 0.99811], 0.514, 0.27, 69, 5.41)
 # 14c: cli.error_budget (small): the whole report
 ERROR_BUDGET_EXPECTED = {
     "feature_rms_cm": 10.1, "feature_median_cm": 7.63,
-    "A_full_pipeline": {"ate_cm": 3.16, "dr_ate_cm": 3.68, "keyframes": 19,
-                        "loops": 8},
+    "A_full_pipeline": {"ate_cm": 3.06, "dr_ate_cm": 3.68, "keyframes": 19,
+                        "loops": 9},
     "B_noiseless_sensors": {"ate_cm": 1.62, "dr_ate_cm": 1.33,
                             "keyframes": 18, "loops": 9},
     "C_gt_features": {"ate_cm": 2.52, "dr_ate_cm": 3.68, "keyframes": 19,
@@ -229,22 +246,22 @@ ERROR_BUDGET_EXPECTED = {
                                 "keyframes": 18, "loops": 9}}
 # 14d: cli.accuracy_sweep (small, 1 seed): (label, ATE cm, loops), ranked
 ACCURACY_SWEEP_EXPECTED = [
-    ("baseline r1 (.5/.5/.5)", 3.07, 10), ("agg.25 (.25/.25/.5)", 3.82, 9),
-    ("noise.35 (.25/.25/.35)", 6.01, 9), ("feat.25 (.25/.5/.5)", 6.29, 6),
-    ("fine (.125/.25/.25) 2xpts", 7.64, 11),
-    ("noise.25 (.25/.25/.25)", 8.87, 8), ("no-subbin (.5/.5/.5)", 9.07, 9)]
+    ("baseline r1 (.5/.5/.5)", 2.74, 10), ("feat.25 (.25/.5/.5)", 3.02, 7),
+    ("agg.25 (.25/.25/.5)", 3.47, 9), ("no-subbin (.5/.5/.5)", 7.07, 10),
+    ("noise.25 (.25/.25/.25)", 8.23, 7), ("noise.35 (.25/.25/.35)", 8.38, 8),
+    ("fine (.125/.25/.25) 2xpts", 10.88, 11)]
 # 14e: cli.map_probe (small) and cli.frontier_coverage_probe --alg OS
 # (small): their whole reports
 MAP_PROBE_EXPECTED = {
-    "config": "small", "n_cells": 1709, "n_truth": 988, "precision@0.4": 0.802,
-    "recall@0.4": 0.718, "recall@0.8": 0.747,
-    "d_truth_q_m": {"50": 0.12, "75": 0.83, "90": 5.1, "95": 8.04, "99": 10.41,
-                    "100": 11.24},
-    "d_cell_q_m": {"50": 0.21, "75": 0.36, "90": 0.51, "95": 0.64, "99": 0.9,
+    "config": "small", "n_cells": 1708, "n_truth": 988, "precision@0.4": 0.802,
+    "recall@0.4": 0.713, "recall@0.8": 0.732,
+    "d_truth_q_m": {"50": 0.12, "75": 1.33, "90": 5.89, "95": 9.94, "99": 11.73,
+                    "100": 12.17},
+    "d_cell_q_m": {"50": 0.21, "75": 0.36, "90": 0.52, "95": 0.65, "99": 0.88,
                    "100": 1.1},
-    "d_cell_mean_m": 0.26, "d_truth_mean_m": 1.33, "feat_recall@0.4": 0.892,
-    "d_truth_feat_q_m": {"50": 0.09, "75": 0.18, "90": 0.42, "95": 1.01,
-                         "99": 2.49, "100": 7.76}}
+    "d_cell_mean_m": 0.26, "d_truth_mean_m": 1.57, "feat_recall@0.4": 0.894,
+    "d_truth_feat_q_m": {"50": 0.09, "75": 0.19, "90": 0.43, "95": 0.98,
+                         "99": 2.52, "100": 7.78}}
 FRONTIER_OS_EXPECTED = {
     "config": "small", "max_points": 128, "kf_count": 18,
     "mean_wedge_truth": 209.5, "mean_occupied_vox": 114.7,
@@ -703,6 +720,9 @@ def check_os_kernel(stacks):
                                                "extend", rank=rank), stacks)
     same_bytes = cuda_time_ms(lambda x: x > gate, stacks)
     lib = cuda_time_ms(library, windows, reps=4, warmup=1)
+    # the rank-0 call's yardstick: the smallest of each window
+    lib0 = cuda_time_ms(lambda w: torch.kthvalue(w, 1, dim=-1), windows,
+                        reps=4, warmup=1)
     del windows
     ms = min(k1, k2)
     bound_ms, bound_by = bound(imgs, 2 * t * gated_pixels(imgs, gate))
@@ -713,7 +733,7 @@ def check_os_kernel(stacks):
     log(f"cfar OS threshold path (cfar_os_split_kernel, rank 10) {kt} ms, "
         f"bound {thr_bound} ({thr_by}), share {thr_bound / kt}, "
         f"torch.kthvalue {lib} ms ({lib / kt:.1f}x the kernel's time); rank 0 "
-        f"(cfar_os_window_kernel) {kt0} ms")
+        f"(cfar_os_window_kernel) {kt0} ms, torch.kthvalue rank 0 {lib0} ms")
     log(f"cfar OS extend rank 10 {tuple(imgs.shape)} ms: mask path {k1} {k2}, "
         f"plain {p1} {p2}; threshold path (selection) {kt}; mask path "
         f"without the gate (every warp on the strip path) {kn}; with a gate "
@@ -735,7 +755,7 @@ def check_os_kernel(stacks):
             "bound_ms_with_threshold": thr_bound,
             "bound_by_with_threshold": thr_by,
             "roofline_share_with_threshold": thr_bound / kt,
-            "ms_with_threshold_rank0": kt0,
+            "ms_with_threshold_rank0": kt0, "library_ms_rank0": lib0,
             "library_call": "torch.kthvalue on the window stack, k-th "
                             "smallest only"}
 
@@ -809,16 +829,20 @@ def check_small(dev):
     25 inliers, spread over 2.3 m, and the first start's solution can move
     by 0.78 m when the inputs move by a few microns. The JAX package itself,
     fed the port's dead-reckoning poses (at most 1.7e-5 m from its own),
-    ends up 0.17 m from its own result. The golden file holds both JAX
-    results (``trajectory`` and ``trajectory_port_dr``).
+    ends up 0.17 m from its own result. So the card is held to two JAX
+    results: the JAX package's own (tests/golden/small_norefine_traj.npz)
+    and the JAX scan fed the card's own dead-reckoning poses
+    (tests/golden/small_norefine_traj_port_dr_rows.npz, made from phase 7's
+    hex dump: ``python tests/test_torch_slam.py``).
 
-    So the card's whole replay must give the JAX keyframes and loop count,
-    a trajectory within SCAN_ATOL_M of one of the two JAX results and an ATE
-    within SMALL_ATE_BAND_M of the JAX result's, either way. Each stage is
+    The card's whole replay must give the JAX keyframes, the loop count and
+    a trajectory within SCAN_ATOL_M of one of the two JAX results, and an
+    ATE within SMALL_ATE_BAND_M of the JAX result's, either way. Each stage is
     held tightly to the port's CPU run on the same inputs (the feature
     clouds, and the SLAM scan fed the CPU's feature clouds). A second replay
     on the card, after the allocator's free memory is filled with NaN, must
-    repeat the first bit for bit.
+    repeat the first bit for bit. Returns the SLAM scan's inputs on the card
+    (keyframes, params, dims) for phase 15c.
     """
     import numpy as np
     import torch
@@ -829,6 +853,8 @@ def check_small(dev):
     sim, dims, params_on, fcfg = small_config(seed=0)
     bag = simulate_bag(sim)
     ref = np.load(os.path.join(HERE, "tests", "golden", "small_norefine_traj.npz"))
+    rows = np.load(os.path.join(HERE, "tests", "golden",
+                                "small_norefine_traj_port_dr_rows.npz"))
     cpu = replay(bag, fcfg, params_on("cpu"), dims, "cpu")
     gpu = replay(bag, fcfg, params_on(dev), dims, dev)
     torch.full((1 << 28,), float("nan"), device=dev)  # freed, stays cached
@@ -867,18 +893,20 @@ def check_small(dev):
     jax_err = float(np.abs(cpu.trajectory - ref["trajectory"]).max())
     ates = [(ate_rmse(r, truth), ate_heading_deg(r, truth))
             for r in (ref["trajectory"], cpu.trajectory, gpu.trajectory)]
-    card_errs = [float(np.abs(gpu.trajectory - ref[k]).max())
-                 for k in ("trajectory", "trajectory_port_dr")]
+    card_errs = [(float(np.abs(gpu.trajectory - r["trajectory"]).max()),
+                  int(r["num_loops"])) for r in (ref, rows)]
     log(f"small config vs JAX: trajectory max abs diff CPU port {jax_err} m, "
-        f"card {card_errs[0]} m (to the JAX result on the port's odometry "
-        f"{card_errs[1]} m); first loop (keyframe 8 to 0) CPU "
-        f"{c.loops_tf[0].tolist()} card {g.loops_tf[0].tolist()}; loops JAX "
-        f"{int(ref['num_loops'])} CPU {c.num_loops} card {g.num_loops}; ATE "
-        f"m/deg JAX {ates[0]} CPU {ates[1]} card {ates[2]}")
-    if (jax_err > SCAN_ATOL_M or min(card_errs) > SCAN_ATOL_M
-            or g.num_loops != int(ref["num_loops"])
+        f"card {card_errs[0][0]} m (to the JAX result on the card's odometry "
+        f"{card_errs[1][0]} m, {card_errs[1][1]} loops); first loop (keyframe "
+        f"8 to 0) CPU {c.loops_tf[0].tolist()} card {g.loops_tf[0].tolist()}; "
+        f"loops JAX {int(ref['num_loops'])} CPU {c.num_loops} card "
+        f"{g.num_loops}; ATE m/deg JAX {ates[0]} CPU {ates[1]} card {ates[2]}")
+    if (jax_err > SCAN_ATOL_M
+            or not any(err <= SCAN_ATOL_M and loops == g.num_loops
+                       for err, loops in card_errs)
             or abs(ates[2][0] - ates[0][0]) > SMALL_ATE_BAND_M):
-        raise RuntimeError("small-config replay disagrees with the JAX result")
+        raise RuntimeError("small-config replay disagrees with the JAX results")
+    return frames, params_on(dev), dims
 
 
 def check_small_refine(dev):
@@ -887,8 +915,11 @@ def check_small_refine(dev):
 
     The survey's ill-conditioned first loop (see ``check_small``) shows here
     too: the JAX package on its own dead reckoning logs 9 loops
-    (tests/golden/small_traj.npz), and fed the port's dead-reckoning poses 8
-    loops, 0.081 m away (tests/golden/small_traj_port_dr.npz). So the card
+    (tests/golden/small_traj.npz), and a float32-ulp move of the odometry
+    moves its result by millimetres to centimetres. The second JAX result is
+    the JAX package fed the card's own dead-reckoning poses at the keyframes
+    (tests/golden/small_traj_port_dr_rows.npz, made from the hex dump this
+    check logs: ``python tests/test_torch_replay_refine.py``). So the card
     must give the JAX keyframe pings, and the loop count and a trajectory
     within SCAN_ATOL_M of one of the two results. The second replay, after
     the allocator's free memory is filled with NaN, must repeat the first
@@ -906,13 +937,16 @@ def check_small_refine(dev):
                                refine_chain=True)
     bag = simulate_bag(sim)
     refs = {name: np.load(os.path.join(HERE, "tests", "golden", name))
-            for name in ("small_traj.npz", "small_traj_port_dr.npz")}
+            for name in ("small_traj.npz", "small_traj_port_dr_rows.npz")}
     t0 = time.perf_counter()
     gpu = replay(bag, fcfg, params_on(dev), dims, dev)
     wall = time.perf_counter() - t0
     torch.full((1 << 28,), float("nan"), device=dev)  # freed, stays cached
     again = replay(bag, fcfg, params_on(dev), dims, dev)
     repeat = float(np.abs(again.trajectory - gpu.trajectory).max())
+    dr = gpu.carry.dr_poses3.cpu().numpy().astype("<f4")
+    log(f"small config with refinement, the card's dead-reckoning poses at the "
+        f"keyframe slots, {dr.shape} float32 little-endian hex: {dr.tobytes().hex()}")
     kf = refs["small_traj.npz"]["keyframe_ping_idx"]
     truth = bag.true_pose_at_ping[kf]
     match = {}
@@ -1879,6 +1913,231 @@ def run_survey_bag() -> int:
     return 0
 
 
+# phase 15: the node API. Dead reckoning one tick a call adds in the JAX
+# package's order; the scan adds as cumulative sums, so their positions lie
+# within the scan's accepted gap (tests/test_torch_estimators.py), which
+# tests/test_torch_node_api.py holds on phase 4's survey on the CPU (5.1e-5
+# m there); depth and attitude within float32 rounding
+DR_STEP_ATOL_M, DR_STEP_ZRPY_ATOL = 2e-4, 1e-6
+# the Smoother on the card against the CPU; the keyed downsampling's
+# centroids on the card against the CPU
+SMOOTHER_ATOL, CENTROID_ATOL_M = 1e-5, 1e-6
+# phase 4's first keyframe clouds, as SLAM.get_points(return_keys=True)
+# gathers them
+NODE_CLOUD_KEYFRAMES = 8
+
+
+def dr_node_inputs(bag):
+    """A survey as the dead-reckoning node sees it: its synchronized ticks
+    (on the host), and the pings' pairing with them (tick index, paired,
+    ping times) for the keyframe gate."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.io.dataset import (SensorStreams, build_dr_ticks,
+                                             match_pings_to_ticks)
+
+    bundle = build_dr_ticks(SensorStreams(
+        imu_time=bag.imu_time, imu_rpy=bag.imu_rpy, dvl_time=bag.dvl_time,
+        dvl_vel=bag.dvl_vel, depth_time=bag.depth_time, depth=bag.depth),
+        torch.device("cpu"))
+    tick_idx, sync_ok = match_pings_to_ticks(bag.ping_time, bundle.tick_time)
+    return (bundle.ticks, tick_idx, sync_ok,
+            np.asarray(bag.ping_time, np.float32))
+
+
+def dr_node_keyframes(poses3, node, params):
+    """The keyframe pings ``replay``'s gate picks from DR poses at the ticks
+    (the pings paired with a tick are the candidates)."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.geometry import pose3_to_pose2
+    from sonar_slam_torch.slam import select_keyframes
+
+    _, tick_idx, sync_ok, ping_time = node
+    poses3 = torch.as_tensor(poses3).cpu()
+    mask = select_keyframes(torch.as_tensor(ping_time),
+                            pose3_to_pose2(poses3[torch.as_tensor(tick_idx)]),
+                            torch.as_tensor(sync_ok), params)
+    return np.nonzero(mask.numpy())[0]
+
+
+def step_dead_reckoning(ticks, config, dev):
+    """``dead_reckoning_step`` over a tick stream on ``dev``, one tick a call,
+    each pose read back to the host as the node publishes it: (poses (T, 6)
+    float32, each tick's host-clock seconds)."""
+    import numpy as np
+    from sonar_slam_torch.estimators import dead_reckoning_init, dead_reckoning_step
+
+    cols = tuple(c.to(dev) for c in ticks)
+    state = dead_reckoning_init(dev)
+    T = cols[0].shape[0]
+    poses, took = np.zeros((T, 6), np.float32), []
+    for i in range(T):
+        t0 = time.perf_counter()
+        state, pose = dead_reckoning_step(state, tuple(c[i] for c in cols),
+                                          config)
+        poses[i] = pose.cpu().numpy()
+        took.append(time.perf_counter() - t0)
+    return poses, took
+
+
+def run_dr_node(node, params, dev) -> dict:
+    """Phase 15a: phase 4's survey through ``dead_reckoning_step`` on the
+    card, one tick a call, against ``dead_reckoning_scan`` on the card: the
+    positions within DR_STEP_ATOL_M, depth and attitude within
+    DR_STEP_ZRPY_ATOL, the same keyframes (FULL_KEYFRAMES) from the gate.
+    Logs the per-tick latency, the launches per tick and the gap."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sonar_slam_torch.estimators import DRConfig, DRTicks, dead_reckoning_scan
+
+    cfg = DRConfig(roll_offset=0.0)  # replay's configuration
+    ticks = node[0]
+    scan = dead_reckoning_scan(DRTicks(*(c.to(dev) for c in ticks)), cfg).cpu()
+    steps, took = step_dead_reckoning(ticks, cfg, dev)
+    steps = torch.as_tensor(steps)
+    gap = float((steps[:, :2] - scan[:, :2]).abs().max())
+    rest = float((steps[:, 2:] - scan[:, 2:]).abs().max())
+    kf = [dr_node_keyframes(p, node, params) for p in (steps, scan)]
+    n = 100
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_dead_reckoning(DRTicks(*(c[:n] for c in ticks)), cfg, dev)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if "LaunchKernel" in e.key or e.key.startswith("cuLaunch")}
+    ms = np.asarray(took) * 1e3
+    out = {"ticks": len(took), "median_ms": float(np.median(ms)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "launches_per_tick": sum(calls.values()) / n, "launch_calls": calls,
+           "xy_gap_m": gap, "other_gap": rest,
+           "keyframes": [len(k) for k in kf]}
+    log(f"phase 15a dead_reckoning_step on the card: {json.dumps(out)}")
+    if gap > DR_STEP_ATOL_M or rest > DR_STEP_ZRPY_ATOL:
+        raise RuntimeError("per-tick dead reckoning disagrees with the scan")
+    if not (np.array_equal(kf[0], kf[1]) and len(kf[0]) == FULL_KEYFRAMES):
+        raise RuntimeError("per-tick dead reckoning gives other keyframes")
+    return out
+
+
+def smoother_cases(dev) -> list:
+    """tests/test_torch_node_api.py's loop-closure and marginal-covariance
+    cases through ``Smoother`` on ``dev``: their estimates and marginal
+    covariances as host arrays."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.geometry import se2_between, se2_compose
+    from sonar_slam_torch.graph import GraphConfig, Smoother
+
+    cfg = GraphConfig(max_poses=16, max_factors=64, gn_iters=8)
+    rng = np.random.default_rng(11)
+    loop = Smoother(cfg, dev)
+    loop.add_prior([0, 0, 0], [0.01, 0.01, 0.001])
+    loop.insert(0, [0, 0, 0])
+    step = torch.tensor([2.0, 0.0, np.pi / 2])
+    truth, guess = [torch.zeros(3)], [torch.zeros(3)]
+    for k in range(4):
+        truth.append(se2_compose(truth[-1], step))
+        noisy = step + torch.as_tensor(rng.normal(scale=[0.1, 0.1, 0.03],
+                                                  size=3).astype(np.float32))
+        loop.add_odometry(k, k + 1, noisy, [0.2, 0.2, 0.05])
+        guess.append(se2_compose(guess[-1], noisy))
+        loop.insert(k + 1, guess[-1])
+    loop.add_odometry(0, 4, se2_between(truth[0], truth[4]),
+                      [0.01, 0.01, 0.001])
+    chain = Smoother(cfg, dev)
+    chain.add_prior([0, 0, 0], [0.1, 0.1, 0.01])
+    chain.insert(0, [0, 0, 0])
+    for k in range(3):
+        chain.add_odometry(k, k + 1, [1.0, 0.0, 0.0], [0.2, 0.2, 0.02])
+        chain.insert(k + 1, [k + 1.0, 0.0, 0.0])
+    out = []
+    for s in (loop, chain):
+        out.append(s.update().cpu().numpy())
+        out += [s.marginal_covariance(k).cpu().numpy() for k in (0, 3)]
+    return out
+
+
+def run_smoother(dev) -> float:
+    """Phase 15b: ``Smoother`` on the card against the CPU, within
+    SMOOTHER_ATOL. Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    err = max(float(np.abs(a - b).max()) for a, b in
+              zip(smoother_cases(dev), smoother_cases(torch.device("cpu"))))
+    log(f"phase 15b Smoother, loop closure and marginal covariances, card vs "
+        f"CPU: max abs diff {err}")
+    if not err <= SMOOTHER_ATOL:
+        raise RuntimeError("Smoother on the card differs from the CPU")
+    return err
+
+
+def run_padded_scan(frames, params, dims) -> None:
+    """Phase 15c: ``slam_scan`` against ``slam_scan_padded`` on the card, on
+    the small configuration's keyframes (refinement off) with an interior
+    slot made invalid: carry and outputs bit for bit."""
+    import torch
+    from sonar_slam_torch.slam.core import slam_scan, slam_scan_padded
+
+    valid = frames.valid.clone()
+    valid[5] = False
+    frames = frames._replace(valid=valid)
+    c_pad, o_pad = slam_scan_padded(frames, params, dims)
+    c_new, o_new = slam_scan(frames, params, dims)
+    ok = _bit_equal(tuple(c_pad), tuple(c_new)) and _bit_equal(tuple(o_pad),
+                                                                tuple(o_new))
+    log(f"phase 15c slam_scan vs slam_scan_padded on the card (small config, "
+        f"{int(valid.sum())} of {valid.numel()} slots, slot 5 invalid): "
+        f"{c_new.num_kf} keyframes, {c_new.num_loops} loops, bit for bit {ok}")
+    if not ok or c_new.num_kf != int(valid.sum()):
+        raise RuntimeError("slam_scan differs from slam_scan_padded on the card")
+
+
+def run_cloud_api(clouds, dev) -> dict:
+    """Phase 15d: ``voxel_downsample_with_keys`` and ``density_filter`` on
+    phase 4's first keyframe clouds in the world frame, keyed by keyframe,
+    on the card against the CPU: keys and masks equal, centroids within
+    CENTROID_ATOL_M."""
+    import math
+
+    import torch
+    from sonar_slam_torch.cloud import (VoxelGridSpec, density_filter,
+                                        voxel_downsample_with_keys)
+    from sonar_slam_torch.geometry import se2_transform_points
+
+    points, pmasks, poses = clouds
+    K, P = pmasks.shape
+    world = se2_transform_points(points, poses).reshape(-1, 2)
+    mask = pmasks.reshape(-1)
+    keys = torch.arange(K, dtype=torch.int32).repeat_interleave(P)
+    lo = torch.floor(world[mask].min(dim=0).values) - 1.0
+    hi = torch.ceil(world[mask].max(dim=0).values) + 1.0
+    res = 0.5
+    spec = VoxelGridSpec(x0=float(lo[0]), y0=float(lo[1]), resolution=res,
+                         nx=math.ceil(float(hi[0] - lo[0]) / res),
+                         ny=math.ceil(float(hi[1] - lo[1]) / res))
+    got = []
+    for d in (dev, torch.device("cpu")):
+        args = (world.to(d), mask.to(d))
+        got.append([t.cpu() for t in (
+            *voxel_downsample_with_keys(*args, keys.to(d), spec, 1024),
+            density_filter(*args, 6, 1.0, 200.0))])
+    (gc, gk, gm, gd), (cc, ck, cm, cd) = got
+    out = {"points": int(mask.sum()), "cells": int(gm.sum()),
+           "centroid_max_abs_diff_m": float((gc - cc).abs().max()),
+           "keys_equal": bool(torch.equal(gk, ck)),
+           "masks_equal": bool(torch.equal(gm, cm) and torch.equal(gd, cd)),
+           "density_kept": int(gd.sum())}
+    log(f"phase 15d voxel_downsample_with_keys and density_filter, card vs "
+        f"CPU: {json.dumps(out)}")
+    if not (out["keys_equal"] and out["masks_equal"]
+            and out["centroid_max_abs_diff_m"] <= CENTROID_ATOL_M):
+        raise RuntimeError("keyed downsampling or the density filter differs "
+                           "on the card")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1959,6 +2218,11 @@ def main() -> int:
                 round(ate_deg, 3)),
                (FULL_KEYFRAMES, FULL_LOOPS, FULL_ATE_M, FULL_ATE_DEG))
     entry["launches"] = sum_launches
+    # phase 15's inputs: the survey's DR ticks and the first keyframe clouds
+    node = dr_node_inputs(bag)
+    n = NODE_CLOUD_KEYFRAMES
+    clouds = (res.carry.points[:n].cpu(), res.carry.pmasks[:n].cpu(),
+              torch.as_tensor(res.trajectory[:n]))
     del res
 
     # 5) the OS slice: bench.py's whole full pipeline with the OS detector
@@ -1967,7 +2231,7 @@ def main() -> int:
     # 6) small configuration, refinement off: the card against the port on
     # the CPU (which the CPU tests hold to the JAX package) and against the
     # JAX result
-    check_small(dev)
+    small = check_small(dev)
 
     # 7) small configuration, refinement on, against the JAX result
     check_small_refine(dev)
@@ -2029,6 +2293,15 @@ def main() -> int:
     by_path["run_repeats"] = launches["sum"]
     by_path_os["run_repeats"] = launches["os_mask"] + launches["os_select"]
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # 15) the node API: dead reckoning one tick a call, the Smoother, the
+    # padded SLAM scan, keyed downsampling and the density filter
+    t15 = time.perf_counter()
+    node_api = {"dead_reckoning_step": run_dr_node(node, params, dev),
+                "smoother_max_abs_diff": run_smoother(dev)}
+    run_padded_scan(*small)
+    node_api["clouds"] = run_cloud_api(clouds, dev)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
     entry["launches_by_path"] = by_path
     entry_os["launches_by_path"] = by_path_os
 
@@ -2036,6 +2309,7 @@ def main() -> int:
         f"(from the build)")
     log(json.dumps({"kalman_scan": kalman}))
     log(json.dumps({"lz4_decoder": lz4_rates}))
+    log(json.dumps({"node_api": node_api}))
     log(json.dumps({"kernels": [entry, entry_os]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

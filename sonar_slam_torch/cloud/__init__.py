@@ -1,7 +1,7 @@
 """Masked fixed-capacity point-cloud ops: nearest neighbours, radius
 filtering, voxel downsampling, normals and batched ICP."""
 
-from .filters import remove_outlier
+from .filters import density_filter, remove_outlier
 from .icp import (
     ICPConfig,
     ICPResult,
@@ -17,4 +17,5 @@ from .voxel import (
     top_k_stable,
     voxel_downsample,
     voxel_downsample_with_conf,
+    voxel_downsample_with_keys,
 )

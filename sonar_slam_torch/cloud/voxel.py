@@ -100,3 +100,32 @@ def voxel_downsample_with_conf(points, mask, conf, spec: VoxelGridSpec,
         return tuple(o[0] for o in _binned(points[None], mask[None], spec,
                                            max_out, conf[None]))
     return _binned(points, mask, spec, max_out, conf)
+
+
+def voxel_downsample_with_keys(points, mask, keys, spec: VoxelGridSpec,
+                               max_out: int):
+    """Like :func:`voxel_downsample`, also carrying an integer key per point
+    (a keyframe index, as ``SLAM.get_points(return_keys=True)`` of the
+    reference asks): a cell's key is that of its lowest-index point.
+    Returns (out_points [max_out, 2], out_keys [max_out] int32, -1 where
+    empty, out_mask [max_out])."""
+    ids, ok = _cell_ids(points, mask, spec)
+    n = points.shape[0]
+    cells = spec.num_cells
+    kept = torch.nonzero(ok).squeeze(1)  # the sums run over kept points only
+    kid = ids[kept]
+    sums = _scatter_sum(cells, kid, points[kept])
+    counts = _scatter_sum(cells, kid, torch.ones(kid.shape, dtype=points.dtype,
+                                                 device=points.device))
+    first_pt = torch.full((cells,), n, dtype=torch.int32,
+                          device=points.device).scatter_reduce(
+        0, kid, kept.to(torch.int32), "amin")
+    score, cell_idx = top_k_stable(counts, max_out)
+    out_mask = score > 0
+    centroids = sums[cell_idx] / torch.clamp(counts[cell_idx], min=1.0)[:, None]
+    centroids = torch.where(out_mask[:, None], centroids,
+                            torch.zeros_like(centroids))
+    first = torch.clamp(first_pt[cell_idx], 0, n - 1)
+    out_keys = torch.where(out_mask, keys[first].to(torch.int32),
+                           torch.full_like(first, -1))
+    return centroids, out_keys, out_mask

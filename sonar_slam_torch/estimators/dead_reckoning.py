@@ -14,12 +14,18 @@ loop, because its state is a function of the last usable tick:
   running maximum of indices (a forward fill);
 * the velocity used at an over-speed tick is the last good one (again a
   forward fill);
-* the position is a cumulative sum of the rotated trapezoidal increments.
+* the position is a cumulative sum of the rotated trapezoidal increments,
+  x and y of every lane scanned as rows of one ``torch.cumsum``.
 
 The sums run in another order than the sequential float32 scan, so the
 positions agree with it to float32 rounding of a 20 m-scale sum: within
 2e-4 m over a few thousand ticks (``tests/test_torch_estimators.py``), with
 the headings equal.
+
+``dead_reckoning_step`` is the node itself, one synchronized tick at a time
+(the JAX package's scan body): a vehicle's loop calls it per tick and
+publishes each pose. It adds in the JAX package's own order, sequential
+float32.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..geometry import pose3_make
+from ..geometry import pose3_make, rot3_inverse, rot3_to_ypr, rot3_ypr
 
 
 class DRConfig(NamedTuple):
@@ -50,6 +56,83 @@ class DRTicks(NamedTuple):
     gyro_yaw: torch.Tensor  # (T,) FOG yaw (ignored unless use_gyro)
     depth: torch.Tensor  # (T,)
     valid: torch.Tensor  # (T,) bool
+
+
+class DRState(NamedTuple):
+    """The node's state between ticks (tensors on one device)."""
+
+    pose: torch.Tensor  # (6,) pose3 (x, y, z, roll, pitch, yaw)
+    prev_time: torch.Tensor
+    prev_vel: torch.Tensor  # (3,)
+    initialized: torch.Tensor  # bool
+    yaw0: torch.Tensor
+    yaw0_set: torch.Tensor  # bool
+    error_timer: torch.Tensor  # seconds of over-speed DVL since the last good one
+
+
+def dead_reckoning_init(device) -> DRState:
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return DRState(pose=zeros(6), prev_time=zeros(), prev_vel=zeros(3),
+                   initialized=zeros(dtype=torch.bool), yaw0=zeros(),
+                   yaw0_set=zeros(dtype=torch.bool), error_timer=zeros())
+
+
+def prepare_imu_euler(imu_rpy: torch.Tensor, mount_rpy: torch.Tensor) -> torch.Tensor:
+    """Mount-frame correction of IMU attitudes [..., 3] (roll, pitch, yaw):
+    the (roll, pitch, yaw) of ``R_imu ∘ R_mount⁻¹``, ``mount_rpy`` being the
+    configuration's ``imu_pose`` rotation (``io.config.load_dr_config``)."""
+    R = rot3_ypr(imu_rpy[..., 2], imu_rpy[..., 1], imu_rpy[..., 0])
+    Rm = rot3_ypr(mount_rpy[2], mount_rpy[1], mount_rpy[0])
+    return rot3_to_ypr(torch.matmul(R, rot3_inverse(Rm)))
+
+
+def dead_reckoning_step(state: DRState, tick, config: DRConfig):
+    """One synchronized tick ``(time, vel (3,), euler (3,), gyro_yaw, depth,
+    valid)`` of tensors -> ``(state, pose3 (6,))``. The pose is emitted at
+    every tick (it holds at an unusable one). Reads nothing back to the
+    host."""
+    time, vel, euler, gyro_yaw, depth, valid = tick
+    valid = torch.as_tensor(valid, device=state.pose.device)
+
+    # the yaw is zeroed at the first valid tick
+    yaw0 = torch.where(state.yaw0_set, state.yaw0, euler[2])
+    yaw0_set = state.yaw0_set | valid
+    if config.use_gyro:
+        yaw, roll = gyro_yaw, euler[0]
+    else:
+        yaw, roll = euler[2] - yaw0, config.roll_offset + euler[0]
+    rpy = torch.stack([roll, euler[1], yaw])
+
+    # DVL over-speed gate: reuse the last good velocity, run the error
+    # timer; an over-speed tick before initialization is dropped
+    over = torch.any(torch.abs(vel) > config.dvl_max_velocity)
+    dt = torch.clamp(time - state.prev_time, min=0.0)
+    error_timer = torch.where(over, state.error_timer + dt, torch.zeros_like(dt))
+    vel_used = torch.where(over, state.prev_vel, vel)
+    usable = valid & (state.initialized | ~over)
+
+    # trapezoidal body-frame translation, rotated by the previous yaw
+    dv = 0.5 * (vel_used + state.prev_vel) * dt
+    cy, sy = torch.cos(state.pose[5]), torch.sin(state.pose[5])
+    px = state.pose[0] + cy * dv[0] - sy * dv[1]
+    py = state.pose[1] + sy * dv[0] + cy * dv[1]
+    moved = pose3_make(torch.stack([px, py, depth]), rpy)
+    first = pose3_make(torch.stack([0.0 * px, 0.0 * py, depth]), rpy)
+    pose = torch.where(usable, torch.where(state.initialized, moved, first),
+                       state.pose)
+
+    new_state = DRState(
+        pose=pose,
+        prev_time=torch.where(usable, time, state.prev_time),
+        prev_vel=torch.where(usable, vel_used, state.prev_vel),
+        initialized=state.initialized | usable,
+        yaw0=yaw0,
+        yaw0_set=yaw0_set,
+        error_timer=torch.where(usable, error_timer, state.error_timer),
+    )
+    return new_state, pose
 
 
 def _last_le(flag: torch.Tensor) -> torch.Tensor:
@@ -105,8 +188,12 @@ def _dr_lanes(ticks: DRTicks, config: DRConfig,
     dv = 0.5 * (vel_used + prev_vel) * dt[..., None]
     cy, sy = torch.cos(prev_yaw), torch.sin(prev_yaw)
     step = (usable & has_prev).to(time.dtype)
-    px = torch.cumsum((cy * dv[..., 0] - sy * dv[..., 1]) * step, dim=-1)
-    py = torch.cumsum((sy * dv[..., 0] + cy * dv[..., 1]) * step, dim=-1)
+    # one scan of rows (x and y of every lane), the same bits every run on a
+    # card (a single long row goes through CUB's timing-dependent look-back;
+    # estimators/gyro.py)
+    px, py = torch.cumsum(torch.stack([(cy * dv[..., 0] - sy * dv[..., 1]) * step,
+                                       (sy * dv[..., 0] + cy * dv[..., 1]) * step]),
+                          dim=-1)
 
     at = torch.clamp(last_usable, min=0)
     pose = pose3_make(torch.stack([px, py, depth[at]], dim=-1), rpy[at])

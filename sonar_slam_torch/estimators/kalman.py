@@ -90,6 +90,26 @@ class KalmanConfig(NamedTuple):
             use_gyro=False)
 
 
+class KalmanState(NamedTuple):
+    """The filter's state (tensors on one device)."""
+
+    x: torch.Tensor  # (12,)
+    P: torch.Tensor  # (12, 12)
+    pose: torch.Tensor  # (6,) pose3
+    yaw_gyro: torch.Tensor  # the FOG yaw integrated so far
+    imu_yaw0: torch.Tensor  # the first IMU event's yaw
+    imu_yaw0_set: torch.Tensor  # bool
+
+
+def kalman_init(device) -> KalmanState:
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return KalmanState(x=zeros(12), P=zeros(12, 12), pose=zeros(6),
+                       yaw_gyro=zeros(), imu_yaw0=zeros(),
+                       imu_yaw0_set=zeros(dtype=torch.bool))
+
+
 def _inv3(S: torch.Tensor) -> torch.Tensor:
     """Inverse of a 3x3 matrix by its adjugate: rows r0, r1, r2 give
     S⁻¹ = [r1×r2, r2×r0, r0×r1]ᵀ / det."""
@@ -135,8 +155,7 @@ def kalman_scan(events_type: np.ndarray, events_z: torch.Tensor,
     sensors = {k: (H, R, H.T.contiguous()) for k, (H, R) in sensors.items()}
     A, AT, Q = cfg.A_imu, cfg.A_imu.T.contiguous(), cfg.Q
 
-    x = torch.zeros(12, dtype=f32, device=dev)
-    P = torch.zeros((12, 12), dtype=f32, device=dev)
+    x, P = kalman_init(dev)[:2]
     hist = torch.zeros((T, 12), dtype=f32, device=dev)  # x after IMU events
     yaw_gyro = torch.zeros((T + 1,), dtype=f32, device=dev)  # after gyro events
     yg = yaw_gyro[T]

@@ -4,9 +4,11 @@ from .se2 import (
     se2_between,
     se2_compose,
     se2_expmap,
+    se2_from_matrix,
     se2_inverse,
     se2_local_coordinates,
     se2_logmap,
+    se2_matrix,
     se2_retract,
     se2_rotmat,
     se2_transform_points,

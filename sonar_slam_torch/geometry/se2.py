@@ -101,3 +101,19 @@ def se2_transform_points(points: torch.Tensor, pose: torch.Tensor) -> torch.Tens
     R = se2_rotmat(pose[..., 2])
     t = pose[..., None, :2]
     return torch.matmul(points, R.transpose(-1, -2)) + t
+
+
+def se2_matrix(p: torch.Tensor) -> torch.Tensor:
+    """Homogeneous 3x3 matrix [..., 3, 3] of the pose."""
+    c, s = torch.cos(p[..., 2]), torch.sin(p[..., 2])
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, -s, p[..., 0]], dim=-1),
+                        torch.stack([s, c, p[..., 1]], dim=-1),
+                        torch.stack([zero, zero, one], dim=-1)], dim=-2)
+
+
+def se2_from_matrix(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`se2_matrix`: (x, y, theta) [..., 3] of a 3x3
+    homogeneous matrix, as the reference parses its ICP output."""
+    theta = torch.atan2(T[..., 1, 0], T[..., 0, 0])
+    return torch.stack([T[..., 0, 2], T[..., 1, 2], theta], dim=-1)

@@ -3,6 +3,7 @@
 from .factor_graph import (
     GraphConfig,
     GraphState,
+    Smoother,
     add_between,
     add_prior,
     cov_to_sqrt_info,
@@ -14,4 +15,10 @@ from .factor_graph import (
     set_pose_estimate,
     sigmas_to_sqrt_info,
 )
-from .pcm import CHI2_99_3DOF, max_clique_mask, pairwise_consistency_matrix, pcm_select
+from .pcm import (
+    CHI2_99_3DOF,
+    max_clique_host,
+    max_clique_mask,
+    pairwise_consistency_matrix,
+    pcm_select,
+)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
@@ -341,3 +342,46 @@ def optimize_batch(states: GraphState, config: GraphConfig) -> GraphState:
         prev_delta = torch.where(active, out[2], prev_delta)
         lam = torch.where(active, out[3], lam)
     return states._replace(poses=poses, log_scale=log_scale)
+
+
+class Smoother:
+    """Host-side wrapper with ISAM2's shape (gtsam's ``ISAM2`` as the
+    reference's SLAM node drives it): queue factors and values, ``update()``
+    for new estimates, ``marginal_covariance(k)``. Poses, measurements,
+    sigmas and covariances may be lists, arrays or tensors; they go to the
+    smoother's device as float32."""
+
+    def __init__(self, config: GraphConfig, device):
+        self.config = config
+        self.device = torch.device(device)
+        self.state = graph_init(config, self.device)
+
+    def _t(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.float32)
+        return torch.tensor(np.asarray(x, np.float32), device=self.device)
+
+    def add_prior(self, pose, sigmas):
+        self.state = add_prior(self.state, self._t(pose),
+                               sigmas_to_sqrt_info(self._t(sigmas)))
+
+    def add_odometry(self, i, j, z, sigmas, robust=False):
+        self.state = add_between(self.state, i, j, self._t(z),
+                                 sigmas_to_sqrt_info(self._t(sigmas)), robust)
+
+    def add_between_cov(self, i, j, z, cov, robust=False):
+        self.state = add_between(self.state, i, j, self._t(z),
+                                 cov_to_sqrt_info(self._t(cov)), robust)
+
+    def insert(self, k, pose):
+        self.state = set_pose_estimate(self.state, k, self._t(pose))
+
+    def update(self) -> torch.Tensor:
+        self.state = optimize(self.state, self.config)
+        return self.state.poses
+
+    def estimate(self, k=None) -> torch.Tensor:
+        return self.state.poses if k is None else self.state.poses[k]
+
+    def marginal_covariance(self, k) -> torch.Tensor:
+        return marginal_covariance(self.state, k, self.config)

@@ -64,3 +64,26 @@ def pcm_select(source_poses, target_poses, transforms, covs, valid,
     mat = pairwise_consistency_matrix(source_poses, target_poses, transforms,
                                       covs, valid, chi2_gate)
     return max_clique_mask(mat, valid, min_pcm)
+
+
+def max_clique_host(adjacency: dict[int, set[int]]) -> list[int]:
+    """Largest clique of a host-side graph of any size (``SLAM.find_cliques``
+    of the reference, for queues beyond the subset scan): vertices listed in
+    the order they were added, empty for an empty graph. A branch stops once
+    it cannot beat the best clique found."""
+    best: list[int] = []
+
+    def expand(clique, candidates):
+        nonlocal best
+        if not candidates:
+            if len(clique) > len(best):
+                best = list(clique)
+            return
+        for v in list(candidates):
+            expand(clique + [v], candidates & adjacency[v])
+            candidates = candidates - {v}
+            if len(clique) + len(candidates) <= len(best):
+                return
+
+    expand([], set(adjacency))
+    return best

@@ -79,6 +79,14 @@ STATUS_LARGE_TRANSFORMATION = 2
 STATUS_NOT_ENOUGH_OVERLAP = 3
 STATUS_NOT_CONVERGED = 4
 STATUS_INITIALIZATION_FAILURE = 5
+STATUS_NAMES = [
+    "Success",
+    "Not enough points",
+    "Large transformation",
+    "Not enough overlap",
+    "Not converged",
+    "Initialization failure",
+]
 
 
 @dataclass(frozen=True)
@@ -757,23 +765,16 @@ def _init_carry(dims: SlamDims, dr_basis, device) -> SlamCarry:
     return carry
 
 
-def slam_scan(frames: KeyframeInput, params: SlamParams, dims: SlamDims,
-              dr_basis=None):
-    """Run the SLAM over stacked keyframe inputs (leading axis K): a loop
-    over the valid slots. Returns (carry, StepOutputs stacked over K, zeros
-    in invalid slots)."""
-    pin_fp32()
-    dev = frames.points.device
-    K = frames.points.shape[0]
-    carry = _init_carry(dims, dr_basis, dev)
-    valid = np.asarray(torch.as_tensor(frames.valid).cpu())
-    rows = {}
-    for i in np.nonzero(valid)[0]:
-        frame = KeyframeInput(
-            time=frames.time[i], dr_pose3=frames.dr_pose3[i],
-            points=frames.points[i], pmask=frames.pmask[i], valid=True,
-            conf=None if frames.conf is None else frames.conf[i])
-        carry, rows[int(i)] = keyframe_step(carry, frame, params, dims)
+def _frame(frames: KeyframeInput, i: int, valid: bool) -> KeyframeInput:
+    return KeyframeInput(
+        time=frames.time[i], dr_pose3=frames.dr_pose3[i],
+        points=frames.points[i], pmask=frames.pmask[i], valid=valid,
+        conf=None if frames.conf is None else frames.conf[i])
+
+
+def _stack_outputs(rows: dict, K: int, dev) -> StepOutputs:
+    """StepOutputs stacked over the K slots from the valid slots' rows,
+    zeros in the others."""
 
     def stack(field):
         ref = next(iter(rows.values()))[field] if rows else None
@@ -784,5 +785,40 @@ def slam_scan(frames: KeyframeInput, params: SlamParams, dims: SlamDims,
             out[i] = row[field]
         return out
 
-    outputs = StepOutputs(*(stack(f) for f in range(len(StepOutputs._fields))))
-    return carry, outputs
+    return StepOutputs(*(stack(f) for f in range(len(StepOutputs._fields))))
+
+
+def slam_scan(frames: KeyframeInput, params: SlamParams, dims: SlamDims,
+              dr_basis=None):
+    """Run the SLAM over stacked keyframe inputs (leading axis K): a loop
+    over the valid slots. Returns (carry, StepOutputs stacked over K, zeros
+    in invalid slots)."""
+    pin_fp32()
+    dev = frames.points.device
+    carry = _init_carry(dims, dr_basis, dev)
+    valid = np.asarray(torch.as_tensor(frames.valid).cpu())
+    rows = {}
+    for i in np.nonzero(valid)[0]:
+        carry, rows[int(i)] = keyframe_step(carry, _frame(frames, i, True),
+                                            params, dims)
+    return carry, _stack_outputs(rows, frames.points.shape[0], dev)
+
+
+def slam_scan_padded(frames: KeyframeInput, params: SlamParams,
+                     dims: SlamDims, dr_basis=None):
+    """The reference form of :func:`slam_scan`: every one of the K slots goes
+    through ``keyframe_step``, an invalid one leaving the carry as it is.
+    ``slam_scan`` is held to it bit for bit (tests/test_torch_node_api.py).
+    Outputs are zeros in invalid slots, as ``slam_scan``'s."""
+    pin_fp32()
+    dev = frames.points.device
+    K = frames.points.shape[0]
+    carry = _init_carry(dims, dr_basis, dev)
+    valid = np.asarray(torch.as_tensor(frames.valid).cpu())
+    rows = {}
+    for i in range(K):
+        carry, out = keyframe_step(carry, _frame(frames, i, bool(valid[i])),
+                                   params, dims)
+        if out is not None:
+            rows[i] = out
+    return carry, _stack_outputs(rows, K, dev)

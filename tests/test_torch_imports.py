@@ -4,11 +4,17 @@ module of the port and chip_smoke.py. None of them loads PyYAML, matplotlib
 or PIL either (the card's machine need not have them), and neither does a
 whole run of ``cli.replay``, of ``cli.two_robot_demo`` (without
 ``--plot``) or of ``cli.map_probe`` (which imports ``cli.error_budget``, the
-configurations of every accuracy CLI) on the CPU."""
+configurations of every accuracy CLI) on the CPU. Every subpackage of the
+port exports every name that the JAX package's exports, but the device-mesh
+helpers (``NOT_PORTED``)."""
 
+import importlib
 import os
 import subprocess
 import sys
+import types
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -189,3 +195,24 @@ def test_cli_map_probe_loads_no_jax_yaml_matplotlib_or_pil():
                  MALLOC_TRIM_THRESHOLD_="68719476736"))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "present: []"
+
+
+# Device-mesh helpers: on one card there is nothing to shard over, and the
+# port runs sweep lanes and the keyframe axis without a mesh.
+NOT_PORTED = {"make_config_mesh", "kf_sharding"}
+SUBPACKAGES = ["cloud", "estimators", "geometry", "graph", "io", "kernels",
+               "mapping", "parallel", "slam", "utils"]
+
+
+def _exports(module) -> set:
+    """The public names a package's ``__init__`` binds, submodules aside."""
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)
+            and n != "annotations"}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_every_name_of_the_jax_package(sub):
+    want = _exports(importlib.import_module("sonar_slam_tpu." + sub))
+    got = _exports(importlib.import_module("sonar_slam_torch." + sub))
+    assert want - NOT_PORTED <= got, sorted(want - NOT_PORTED - got)

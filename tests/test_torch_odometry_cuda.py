@@ -1,4 +1,4 @@
-"""The FOG-gyro and Kalman front ends repeat bit for bit on a card.
+"""The odometry front ends repeat bit for bit on a card.
 
 On a card a cumulative sum over one long row goes through CUB's decoupled
 look-back scan, in which a tile adds the partial sums of the tiles before it
@@ -8,11 +8,11 @@ samples) was integrated the first way, and one run on an H100 gave gyro
 odometry 1.1e-4 m from the JAX package's where every other gave 9.0e-5 m,
 which the ill-conditioned loops downstream turned into another ATE (no
 other stage of that run moved; 300 back-to-back scans on an idle card did
-not reproduce it). ``gyro_integrate`` and the Kalman pose integral scan
-rows instead. On the CPU every scan is sequential, so the rows give the
-bits the single row gave. ``dead_reckoning_scan`` still sums x and y as
-single rows: a 480 s survey's 2,398 DVL ticks fit in two of CUB's tiles,
-whose look-back has one order; an hour's 18,000 do not. Its CPU output is
+not reproduce it). ``gyro_integrate``, the Kalman pose integral and
+``dead_reckoning_scan`` (x and y of every lane) scan rows instead; an
+hour's 18,000 DVL ticks, which span more of CUB's tiles than a 480 s
+survey's 2,400, repeat too. On the CPU every scan is sequential, so the
+rows give the bits the single row gave: dead reckoning's CPU output is
 pinned bit for bit (``tests/golden/dr_small_survey.npz``) so that a change
 of the card's scan cannot move it.
 
@@ -20,7 +20,8 @@ This file imports no JAX: ``python -m pytest --noconftest
 tests/test_torch_odometry_cuda.py`` on a card; without one every test
 skips. Run as a script on a card (``PYTHONPATH=. python
 tests/test_torch_odometry_cuda.py``) it prints how often a single-row scan
-and a two-row scan of the same numbers repeat their first result.
+and a two-row scan of the same numbers repeat their first result, and how
+often dead reckoning repeats its own and how far it lies from the CPU's.
 """
 
 import os
@@ -106,6 +107,15 @@ def _long_ticks(n: int, device, seed: int = 0) -> DRTicks:
                       for k, v in arrs.items()})
 
 
+@pytest.mark.cuda
+def test_dead_reckoning_on_an_hour_of_ticks_repeats_bit_for_bit(card):
+    ticks = _long_ticks(18000, card)
+    cfg = DRConfig(roll_offset=0.0)
+    first = dead_reckoning_scan(ticks, cfg)
+    for _ in range(200):
+        assert torch.equal(dead_reckoning_scan(ticks, cfg), first)
+
+
 def _small_survey_ticks():
     bag = simulate_bag(SMALL_SURVEY)
     return build_dr_ticks(SensorStreams(
@@ -145,23 +155,17 @@ if __name__ == "__main__":
               f"in {d_one} of 300 runs, a two-row scan in {d_rows} of 300; "
               f"the two forms {float((rows[0] - one).abs().max()):.3e} apart "
               f"({torch.cuda.get_device_name(0)})")
-    # dead reckoning as it is (one lane: single-row sums) and as rows (two
-    # identical lanes: ATen's row scan), on an hour of ticks and on the
-    # small survey's, each against the CPU's sequential sums
-    from sonar_slam_torch.estimators.dead_reckoning import _dr_lanes
-
+    # dead reckoning (its x and y scanned as rows), on an hour of ticks and
+    # on the small survey's, against the CPU's sequential sums
     cfg = DRConfig(roll_offset=0.0)
     for name, ticks in (("18000 DR ticks", _long_ticks(18000, dev)),
                         ("the small survey's DR ticks", DRTicks(*(
                             v.to(dev) for v in _small_survey_ticks())))):
-        two = torch.ones((2, 3), device=dev)
-        forms = {"single-row": lambda: dead_reckoning_scan(ticks, cfg),
-                 "row": lambda: _dr_lanes(ticks, cfg, two)[0]}
         cpu = dead_reckoning_scan(DRTicks(*(v.cpu() for v in ticks)), cfg)
-        for form, run in forms.items():
-            first = run()
-            diff = sum(not torch.equal(run(), first) for _ in range(300))
-            gap = float((first.cpu() - cpu)[:, :2].abs().max())
-            print(f"{name}: the {form} scan differs from its first result in "
-                  f"{diff} of 300 runs; its positions lie {gap:.3e} m from "
-                  f"the CPU's")
+        first = dead_reckoning_scan(ticks, cfg)
+        diff = sum(not torch.equal(dead_reckoning_scan(ticks, cfg), first)
+                   for _ in range(300))
+        gap = float((first.cpu() - cpu)[:, :2].abs().max())
+        print(f"{name}: dead reckoning differs from its first result in "
+              f"{diff} of 300 runs; its positions lie {gap:.3e} m from the "
+              f"CPU's")

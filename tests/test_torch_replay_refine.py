@@ -10,9 +10,17 @@ by both packages on the CPU, then bench.py's scoring of it.
 * The survey's first loop is ill-conditioned (tests/test_torch_slam.py):
   the card, whose dead reckoning sums in another order, logs 8 loops and
   ends 0.080 m from the JAX result. The JAX package fed the port's
-  dead-reckoning poses (1.7e-5 m from its own) is the other reference;
-  tests/golden/small_traj_port_dr.npz holds it and chip_smoke.py accepts
-  either. ``test_jax_refine_on_port_odometry_matches_golden`` pins it.
+  dead-reckoning poses (1.7e-5 m from its own) is another reference;
+  tests/golden/small_traj_port_dr.npz holds it, and
+  ``test_jax_refine_on_port_odometry_matches_golden`` pins it. The card's
+  own dead reckoning (x and y scanned as rows) lies 1.9e-6 m from the CPU's
+  and moves the result again: tests/golden/small_traj_port_dr_rows.npz
+  holds the JAX package fed those card poses, with the poses, and
+  chip_smoke.py accepts it or small_traj.npz. Run as a script this file
+  rewrites it from the hex dump that chip_smoke.py's phase 7 logs (see the
+  end of the file); ``test_jax_refine_on_card_odometry_matches_rows_golden``
+  checks that its poses are the port's dead reckoning of this survey
+  (within 1e-5 m of the CPU's) and that JAX reproduces its result.
 * ``pipeline.loop_metrics`` on the port's carry against bench.py's
   ``loop_metrics`` on the JAX carry: the same counts, precision and recall,
   and loop errors within 0.01 cm (their last rounded digit).
@@ -53,6 +61,8 @@ torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "small_traj.npz")
 GOLDEN_PORT_DR = os.path.join(os.path.dirname(__file__), "golden",
                               "small_traj_port_dr.npz")
+GOLDEN_ROWS = os.path.join(os.path.dirname(__file__), "golden",
+                           "small_traj_port_dr_rows.npz")
 SIM = dict(duration=90.0, speed=0.5, sonar_rate=1.0, num_ranges=192,
            num_bearings=96, loop_radius=10.0, imu_rate=20.0)
 
@@ -94,28 +104,48 @@ def replays():
     return dict(bag=bag, tbag=tbag, jdims=jdims, jres=jres, tres=tres, truth=truth)
 
 
-def jax_refined_on_port_odometry(replays):
-    """The JAX scan and refinement on the JAX package's own clouds and the
-    port's dead-reckoning poses: (keyframe_ping_idx, trajectory, num_loops)."""
-    jres, tres, jdims = replays["jres"], replays["tres"], replays["jdims"]
+def jax_refined_on_odometry(jres, jdims, dr_poses3):
+    """The JAX scan and refinement on the JAX package's own clouds and other
+    dead-reckoning poses at the keyframe slots (K, 6): (keyframe_ping_idx,
+    trajectory, num_loops)."""
     _, jparams, _ = golden_config()
-    nk = tres.num_keyframes
+    nk = jres.num_keyframes
     jc = jres.carry
     frames = jcore.KeyframeInput(
-        time=jc.times, dr_pose3=jnp.asarray(tres.carry.dr_poses3.numpy()),
+        time=jc.times, dr_pose3=jnp.asarray(dr_poses3),
         points=jc.points, pmask=jc.pmasks,
         valid=jnp.arange(jdims.max_keyframes) < nk, conf=jc.pconf)
     carry, _ = jcore.slam_scan(frames, jparams, jdims, None)
     carry = jref.refine_loops(carry, jparams, jref.RefineParams.default(),
                               jdims, None, None)
-    return dict(keyframe_ping_idx=tres.keyframe_ping_idx,
+    return dict(keyframe_ping_idx=np.asarray(jres.keyframe_ping_idx),
                 trajectory=np.asarray(carry.poses)[:nk],
                 num_loops=int(carry.num_loops))
+
+
+def jax_refined_on_port_odometry(replays):
+    """The JAX scan and refinement on the JAX package's own clouds and the
+    port's dead-reckoning poses."""
+    assert replays["tres"].num_keyframes == replays["jres"].num_keyframes
+    return jax_refined_on_odometry(replays["jres"], replays["jdims"],
+                                   replays["tres"].carry.dr_poses3.numpy())
 
 
 def test_jax_refine_on_port_odometry_matches_golden(replays):
     got = jax_refined_on_port_odometry(replays)
     gold = np.load(GOLDEN_PORT_DR)
+    np.testing.assert_array_equal(gold["keyframe_ping_idx"],
+                                  got["keyframe_ping_idx"])
+    assert int(gold["num_loops"]) == got["num_loops"]
+    np.testing.assert_allclose(gold["trajectory"], got["trajectory"], atol=5e-4)
+
+
+def test_jax_refine_on_card_odometry_matches_rows_golden(replays):
+    gold = np.load(GOLDEN_ROWS)
+    card_dr = gold["dr_poses3"]
+    np.testing.assert_allclose(card_dr, replays["tres"].carry.dr_poses3.numpy(),
+                               rtol=0, atol=1e-5)
+    got = jax_refined_on_odometry(replays["jres"], replays["jdims"], card_dr)
     np.testing.assert_array_equal(gold["keyframe_ping_idx"],
                                   got["keyframe_ping_idx"])
     assert int(gold["num_loops"]) == got["num_loops"]
@@ -189,3 +219,27 @@ def test_mapping_stage_matches_jax(replays):
         assert abs(got[k] - want[k]) <= 0.002, k
     assert abs(got["chamfer_cm"] - want["chamfer_cm"]) <= 0.2
     assert got["precision"] > 0.5 and got["recall"] > 0.3
+
+
+if __name__ == "__main__":
+    # Rewrite tests/golden/small_traj_port_dr_rows.npz from a log of
+    # chip_smoke.py (its phase 7 line "... float32 little-endian hex: <hex>",
+    # the card's dead-reckoning poses at the keyframe slots): the JAX
+    # package's refined small replay on its own clouds and those poses, on
+    # the CPU.
+    #   PYTHONPATH=.:tests JAX_PLATFORMS=cpu \
+    #       python tests/test_torch_replay_refine.py chip_smoke.log
+    import re
+    import sys
+
+    with open(sys.argv[1]) as f:
+        found = re.findall(r"\(32, 6\) float32 little-endian hex: ([0-9a-f]+)",
+                           f.read())
+    card_dr = np.frombuffer(bytes.fromhex(found[-1]), "<f4").reshape(32, 6)
+    jdims, jparams, jfc = golden_config()
+    jres = jpipe.replay(jsim.simulate_bag(jsim.SimConfig(**SIM)), jfc, jparams,
+                        jdims)
+    out = jax_refined_on_odometry(jres, jdims, card_dr)
+    np.savez(GOLDEN_ROWS, dr_poses3=card_dr, **out)
+    print(f"wrote {GOLDEN_ROWS}: {out['num_loops']} loops, keyframes "
+          f"{out['keyframe_ping_idx'].tolist()}")

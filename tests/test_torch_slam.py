@@ -12,7 +12,12 @@
   JAX result must also match tests/golden/small_norefine_traj.npz, which
   chip_smoke.py compares the card against. The file also holds the JAX
   scan's result on the port's dead-reckoning poses, the other outcome of
-  the survey's ill-conditioned first loop.
+  the survey's ill-conditioned first loop. The card's own dead reckoning
+  (x and y scanned as rows, 1.9e-6 m from the CPU's) is a third input:
+  tests/golden/small_norefine_traj_port_dr_rows.npz holds the JAX scan fed
+  those card poses, with the poses; chip_smoke.py accepts it or the JAX
+  result. Run as a script this file rewrites it from the hex dump that
+  chip_smoke.py's phase 7 logs (the same poses; see the end of the file).
 """
 
 import dataclasses
@@ -46,6 +51,8 @@ from sonar_slam_torch.convert import (
 
 torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "small_norefine_traj.npz")
+GOLDEN_ROWS = os.path.join(os.path.dirname(__file__), "golden",
+                           "small_norefine_traj_port_dr_rows.npz")
 
 SMALL_SIM = dict(duration=90.0, speed=0.5, sonar_rate=1.0, num_ranges=192,
                  num_bearings=96, loop_radius=10.0, imu_rate=20.0, seed=0)
@@ -219,6 +226,36 @@ def test_jax_scan_on_port_odometry_matches_golden(bag, small_replays):
                                np.asarray(carry.poses)[:nk], atol=5e-4)
 
 
+def jax_scan_on_odometry(jres, jdims, jparams, dr_poses3):
+    """The JAX scan on the JAX package's own keyframe clouds and other
+    dead-reckoning poses at the keyframe slots (K, 6): (keyframe_ping_idx,
+    trajectory, num_loops)."""
+    nk = jres.num_keyframes
+    jc = jres.carry
+    frames = jcore.KeyframeInput(
+        time=jc.times, dr_pose3=jnp.asarray(dr_poses3), points=jc.points,
+        pmask=jc.pmasks, valid=jnp.arange(jdims.max_keyframes) < nk,
+        conf=jc.pconf)
+    carry, _ = jcore.slam_scan(frames, jparams, jdims, None)
+    return dict(keyframe_ping_idx=np.asarray(jres.keyframe_ping_idx),
+                trajectory=np.asarray(carry.poses)[:nk],
+                num_loops=int(carry.num_loops))
+
+
+def test_jax_scan_on_card_odometry_matches_rows_golden(small_replays):
+    """The rows golden's poses are the port's dead reckoning of this survey
+    (within 1e-5 m of the CPU's), and the JAX scan on them reproduces it."""
+    jdims, jparams, jfc, jres, tres = small_replays
+    gold = np.load(GOLDEN_ROWS)
+    np.testing.assert_allclose(gold["dr_poses3"], tres.carry.dr_poses3.numpy(),
+                               rtol=0, atol=1e-5)
+    got = jax_scan_on_odometry(jres, jdims, jparams, gold["dr_poses3"])
+    np.testing.assert_array_equal(gold["keyframe_ping_idx"],
+                                  got["keyframe_ping_idx"])
+    assert int(gold["num_loops"]) == got["num_loops"]
+    np.testing.assert_allclose(gold["trajectory"], got["trajectory"], atol=5e-4)
+
+
 def test_unported_options_raise(bag):
     tbag = tsim.simulate_bag(tsim.SimConfig(**dict(SMALL_SIM, duration=5.0)))
     dims = tcore.SlamDims()
@@ -246,3 +283,26 @@ def test_unported_options_raise(bag):
               refine_target_window=3, refine_scale_anchor_sigma=(0.01, 0.02))
     assert dims_from_reference(jcore.SlamDims(scan_chunk=4, **on)) == (
         dataclasses.replace(dims, **on))
+
+
+if __name__ == "__main__":
+    # Rewrite tests/golden/small_norefine_traj_port_dr_rows.npz from a log
+    # of chip_smoke.py (its phase 7 line "... float32 little-endian hex:
+    # <hex>", the card's dead-reckoning poses at the keyframe slots, which
+    # phase 6 shares): the JAX scan on its own clouds and those poses.
+    #   PYTHONPATH=.:tests JAX_PLATFORMS=cpu \
+    #       python tests/test_torch_slam.py chip_smoke.log
+    import re
+    import sys
+
+    with open(sys.argv[1]) as f:
+        found = re.findall(r"\(32, 6\) float32 little-endian hex: ([0-9a-f]+)",
+                           f.read())
+    card_dr = np.frombuffer(bytes.fromhex(found[-1]), "<f4").reshape(32, 6)
+    jdims = jcore.SlamDims(icp=JICP(**ICP_PROD), **SMALL_DIMS)
+    jparams = _small_params(jdims)
+    jres = jpipe.replay(jsim.simulate_bag(jsim.SimConfig(**SMALL_SIM)),
+                        JFC(max_points=128, corroborate=False), jparams, jdims)
+    out = jax_scan_on_odometry(jres, jdims, jparams, card_dr)
+    np.savez(GOLDEN_ROWS, dr_poses3=card_dr, **out)
+    print(f"wrote {GOLDEN_ROWS}: {out['num_loops']} loops")
