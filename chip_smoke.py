@@ -88,9 +88,13 @@ the script exits non-zero without printing the result line:
    ``states`` dtype, and the keyframes, loops and ATE below, exactly; see
    ``run_cli_full``;
 13. the ``parallel/`` entry points, each with the launch counters reset just
-   before: (a) ``cli.sweep --simulate --lanes 8`` (one CFAR launch for the
-   whole sweep; lanes 0 and 7 bit for bit against a lone ``slam_scan`` of
-   their params), (b) ``cli.two_robot_demo`` (one launch a robot), (c)
+   before: (a) ``cli.sweep --simulate`` at its default 64 lanes, one
+   lane-batched scan (one CFAR launch for the whole sweep; lanes 0-7 held
+   to their pins; lanes 0, 7 and 63 bit for bit with a lone ``slam_scan``
+   of their params, pinned, and so within 0.5 cm of its ATE; the batched
+   scan's kernel launches a keyframe step at 64 lanes at most twice those
+   at one lane, under ``torch.profiler``), (b) ``cli.two_robot_demo``
+   (one launch a robot), (c)
    ``cli.sharded_replay --max-keyframes 1024 --check --duration 60`` (the
    replay at capacity 1024 against capacity 128; one launch a replay), each
    with its
@@ -211,8 +215,19 @@ CLI_REPAINT_SHARE = 0.002
 # (keyframes, loops per lane, best ATE m), the two-robot demo's (keyframes,
 # loops, proposals, PCM accepts, clique size, merged ATE m rounded to 0.1
 # mm) and the large-capacity replay's (keyframes, loops, ATE m)
-SWEEP_LANES = 8
+SWEEP_LANES = 64
+# 13a: lanes 0-7 of the 64-lane batched sweep, the 8 combinations of the
+# 8-lane loop of lone scans this phase ran before, with its pin
 SWEEP_EXPECTED = (19, [5, 5, 5, 5, 9, 9, 9, 9], 0.2429)
+# 13a: the lanes held bit for bit against a lone slam_scan of their params,
+# each lane's (loops, ATE m); and the band a lane's ATE must keep to its
+# lone scan's (bits keep it at 0)
+SWEEP_LONE_LANES = (0, 7, 63)
+SWEEP_LONE_EXPECTED = {0: (5, 0.2883), 7: (9, 0.2429), 63: (9, 0.262)}
+SWEEP_ATE_BAND_M = 0.005
+# 13a: the batched scan's kernel launches a keyframe step at 64 lanes may
+# be at most this many times those at one lane
+SWEEP_LAUNCH_RATIO = 2.0
 TWO_ROBOT_EXPECTED = ([18, 19], [9, 4], 5, 4, 4, 0.0746)
 SHARDED_EXPECTED = (13, 4, 0.0496)
 # phase 13c replays a 60 s survey: on the card the 90 s default's loops
@@ -1594,35 +1609,80 @@ def _lane(tree, i):
                         None if x is None else x[i] for x in tree))
 
 
+def _launches(fn) -> int:
+    """Kernel launch calls (``cudaLaunchKernel``, ``cuLaunchKernel``) of ``fn()``,
+    counted in ``torch.profiler``'s raw CUDA trace (its ``key_averages``
+    takes longer than the run over 10^5 launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if "LaunchKernel" in e.name() or e.name().startswith("cuLaunch"))
+
+
 def run_sweep(dev) -> dict:
-    """Phase 13a: ``cli.sweep --simulate --lanes 8``. Returns its launches by
-    kernel."""
+    """Phase 13a: ``cli.sweep --simulate`` at its default 64 lanes, one
+    lane-batched scan. Returns its launches by kernel."""
     import numpy as np
+    import torch
     from sonar_slam_torch.cli import sweep as sweep_cli
+    from sonar_slam_torch.parallel import stack_params, sweep_scan
     from sonar_slam_torch.parallel.sweep import lane_params
+    from sonar_slam_torch.pipeline import ate_rmse
     from sonar_slam_torch.slam import slam_scan
 
     run, took, peak, launches = _counted(lambda: sweep_cli.main(
         ["--simulate", "--lanes", str(SWEEP_LANES)]))
     rep = run.report
-    log(f"cli.sweep --lanes {SWEEP_LANES}: whole CLI {took:.2f} s, peak memory "
-        f"{peak:.1f} MiB, CFAR launches {launches}")
-    for i in (0, SWEEP_LANES - 1):
-        t0 = time.perf_counter()
-        c1, _ = slam_scan(run.frames, lane_params(run.params, i), run.dims)
-        same = _bit_equal(_lane(run.carry, i), c1)
-        log(f"cli.sweep lane {i} against a lone slam_scan "
-            f"({time.perf_counter() - t0:.2f} s): bit for bit {same}")
-        if not same:
-            raise RuntimeError(f"cli.sweep: lane {i} differs from a lone scan")
+    nk = rep["keyframes"]
+    log(f"cli.sweep --lanes {SWEEP_LANES}: whole CLI {took:.2f} s, wall_s "
+        f"{rep['wall_s']}, compile_s {rep['compile_s']}, lane_seconds_per_lane "
+        f"{rep['lane_seconds_per_lane']}, peak memory {peak:.1f} MiB, CFAR "
+        f"launches {launches}; loops per lane {rep['loops_per_lane']}, best "
+        f"lane {rep['best_lane']} ATE {rep['best_ate_m']} m, median "
+        f"{rep['median_ate_m']} m")
     if not np.isfinite(run.carry.poses.cpu().numpy()).all():
         raise RuntimeError("cli.sweep: poses not finite")
     if launches["sum"] != 1 or sum(launches.values()) != 1:
         raise RuntimeError(f"cli.sweep made CFAR launches {launches}, expected "
                            "one of the sum kernel")
-    _check_pin("cli.sweep (keyframes, loops per lane, best ATE m)",
-               (rep["keyframes"], rep["loops_per_lane"], rep["best_ate_m"]),
+    _check_pin("cli.sweep lanes 0-7 (keyframes, loops per lane, best ATE m)",
+               (nk, rep["loops_per_lane"][:8], round(min(run.ates[:8]), 4)),
                SWEEP_EXPECTED)
+    for i in SWEEP_LONE_LANES:
+        t0 = time.perf_counter()
+        c1, _ = slam_scan(run.frames, lane_params(run.params, i), run.dims)
+        torch.cuda.synchronize()
+        lone_s = time.perf_counter() - t0
+        lane = _lane(run.carry, i)
+        same = _bit_equal(lane, c1)
+        dpose = (lane.poses - c1.poses)[:nk].abs().max().item()
+        lone_ate = ate_rmse(c1.poses.cpu().numpy()[:nk], run.truth)
+        log(f"cli.sweep lane {i} against a lone slam_scan ({lone_s:.2f} s): "
+            f"bit for bit {same}, max |dpose| {dpose:.3e} m, keyframes "
+            f"{int(lane.num_kf)} and {c1.num_kf}, loops {int(lane.num_loops)} "
+            f"and {c1.num_loops}, ATE {run.ates[i]:.4f} and {lone_ate:.4f} m")
+        if abs(run.ates[i] - lone_ate) > SWEEP_ATE_BAND_M:
+            raise RuntimeError(f"cli.sweep: lane {i}'s ATE is more than "
+                               f"{SWEEP_ATE_BAND_M} m from its lone scan's")
+        if not same:
+            raise RuntimeError(f"cli.sweep: lane {i} differs from a lone scan")
+        _check_pin(f"cli.sweep lane {i} (loops, ATE m)",
+                   (c1.num_loops, round(lone_ate, 4)), SWEEP_LONE_EXPECTED[i])
+    one = stack_params([lane_params(run.params, 0)])
+    per_step = {}
+    for name, params in (("B=1", one), (f"B={SWEEP_LANES}", run.params)):
+        n = _launches(lambda: sweep_scan(run.frames, params, run.dims))
+        per_step[name] = n / nk
+    ratio = per_step[f"B={SWEEP_LANES}"] / per_step["B=1"]
+    log(f"cli.sweep: kernel launches a keyframe step {json.dumps(per_step)}, "
+        f"ratio {ratio:.3f}")
+    if ratio > SWEEP_LAUNCH_RATIO:
+        raise RuntimeError(f"cli.sweep: {SWEEP_LANES} lanes launch {ratio:.2f} "
+                           f"times one lane's kernels a step")
     return launches
 
 

@@ -6,8 +6,9 @@ shared preprocessing (dead reckoning, the base config's keyframe gate, one
 batched CFAR launch over the keyframe pings) runs once; then
 ``parallel.sweep_scan`` replays the keyframes under every lane of a 4 x 4 x
 4 grid (point noise x ICP odometry sigma scale x SSM rotation gate), wrapped
-to ``--lanes``. The lanes run one after another on one device (there is no
-mesh: ``parallel/sweep.py``), so ``devices`` is 1. The sweep runs twice:
+to ``--lanes``. All lanes run as one lane-batched scan on one device, each
+keyframe step advancing every lane (``slam/lanes.py``; there is no mesh:
+``parallel/sweep.py``), so ``devices`` is 1. The sweep runs twice:
 ``compile_s`` is the first run's wall time and ``wall_s`` the second's, each
 ended by a device sync. Prints (and with ``--out`` writes) the script's
 JSON report; on a card it also logs the peak device memory to stderr.
@@ -43,6 +44,8 @@ class SweepRun(NamedTuple):
     params: object  # SlamParams stacked over the lanes
     dims: object  # SlamDims
     carry: object  # SlamCarry stacked over the lanes (the second sweep's)
+    ates: list  # each lane's ATE, m
+    truth: object  # the keyframes' true poses (keyframes, 3)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -117,43 +120,57 @@ def sim_config(duration: float, **over):
                      imu_rate=20.0, **over)
 
 
-def main(argv=None) -> SweepRun:
-    args = _parser().parse_args(argv)
-    device = device_from_args(args.cpu, "sweep")
-
-    from ..io.simulate import simulate_bag
-    from ..parallel import stack_params, sweep_scan
-    from ..pipeline import ate_rmse
-    from ..slam import FeatureConfig
-
-    if args.simulate or not args.file:
-        bag = simulate_bag(sim_config(args.duration))
-    else:
-        from .replay import load_npz_bag
-
-        bag = load_npz_bag(args.file, 0.0, 0.0)
-
-    dims, base = small_dims_params(device)
-
-    # lane grid: point_noise x icp_odom_sigma scale x max_rotation
+def lane_grid(base, lanes: int):
+    """The sweep's lanes: the 4 x 4 x 4 grid of (point noise, ICP odometry
+    sigma scale, SSM rotation gate) over ``base``, wrapped to ``lanes``.
+    Returns (the grid's combinations, one SlamParams a lane)."""
     noises = [0.3, 0.4, 0.5, 0.6]
     sig_scales = [0.5, 1.0, 1.5, 2.0]
     rot_gates = [np.radians(20), np.radians(30), np.radians(45), np.radians(60)]
     combos = list(itertools.product(noises, sig_scales, rot_gates))
-    combos = (combos * ((args.lanes + len(combos) - 1) // len(combos)))[: args.lanes]
-    lanes = [
+    combos = (combos * ((lanes + len(combos) - 1) // len(combos)))[:lanes]
+    return combos, [
         base._replace(point_noise=float(np.float32(n)),
                       icp_odom_sigmas=base.icp_odom_sigmas * s,
                       ssm_max_rotation=float(np.float32(r)))
         for (n, s, r) in combos
     ]
-    stacked = stack_params(lanes)
 
+
+def sweep_inputs(device, lanes: int, duration: float = 90.0, file=None):
+    """What :func:`main` sweeps: (the bag, SlamDims, the lane grid's
+    combinations, the stacked params, the shared KeyframeInput, the
+    keyframes' ping indices)."""
+    from ..io.simulate import simulate_bag
+    from ..parallel import stack_params
+    from ..slam import FeatureConfig
+
+    if file:
+        from .replay import load_npz_bag
+
+        bag = load_npz_bag(file, 0.0, 0.0)
+    else:
+        bag = simulate_bag(sim_config(duration))
+    dims, base = small_dims_params(device)
+    combos, lane_list = lane_grid(base, lanes)
     # shared preprocessing (config-independent up to the keyframe gate, which
     # uses the base config's gates so all lanes share the same keyframes —
     # like the reference harness replaying the same bag)
     frames, kf_idx = build_frames(
         bag, base, dims, FeatureConfig(max_points=dims.max_points), device)
+    return bag, dims, combos, stack_params(lane_list), frames, kf_idx
+
+
+def main(argv=None) -> SweepRun:
+    args = _parser().parse_args(argv)
+    device = device_from_args(args.cpu, "sweep")
+
+    from ..parallel import sweep_scan
+    from ..pipeline import ate_rmse
+
+    bag, dims, combos, stacked, frames, kf_idx = sweep_inputs(
+        device, args.lanes, args.duration,
+        None if args.simulate else args.file)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -197,7 +214,7 @@ def main(argv=None) -> SweepRun:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2)
     return SweepRun(report=report, frames=frames, params=stacked, dims=dims,
-                    carry=carry)
+                    carry=carry, ates=ates, truth=truth)
 
 
 if __name__ == "__main__":

@@ -12,16 +12,20 @@ A lane is either one start against a shared source and target
 (:func:`icp_multistart`, the multi-start search) or one registration of a
 pair of its own (:func:`icp_pairs`, the refinement fan-outs: every lane
 aligns a different source onto a different target). Lanes never interact,
-so a batch gives each lane the result it would get alone.
+so a batch gives each lane the result it would get alone: within rounding,
+and on a card bit for bit with ``lone_rows`` (a sweep's lanes, whose sums
+then add in a lone call's order, ``lone_sums.py``).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import se2_compose, se2_transform_points, wrap_angle
+from ..lone_sums import lone_sum
 from .knn import nn_match, sq32
 from .normals import estimate_normals
 
@@ -55,15 +59,21 @@ class ICPResult(NamedTuple):
     mse: torch.Tensor  # mean squared inlier residual
 
 
-def _weighted_procrustes(src, dst, w):
-    """Closed-form weighted rigid alignment src->dst per lane: (G, 3)."""
-    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-9)
-    pc = torch.sum(src * w[..., None], dim=-2) / wsum[:, None]
-    qc = torch.sum(dst * w[..., None], dim=-2) / wsum[:, None]
+def _plain_sum(x, dim):
+    return torch.sum(x, dim=dim)
+
+
+def _weighted_procrustes(src, dst, w, rsum=_plain_sum):
+    """Closed-form weighted rigid alignment src->dst per lane: (G, 3).
+    ``rsum`` takes the lanes' sums (``torch.sum``, or a lone call's order,
+    :func:`_icp_lanes`)."""
+    wsum = torch.clamp(rsum(w, -1), min=1e-9)
+    pc = rsum(src * w[..., None], -2) / wsum[:, None]
+    qc = rsum(dst * w[..., None], -2) / wsum[:, None]
     a = src - pc[:, None]
     b = dst - qc[:, None]
-    sxx = torch.sum(w * (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]), dim=-1)
-    syx = torch.sum(w * (a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]), dim=-1)
+    sxx = rsum(w * (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]), -1)
+    syx = rsum(w * (a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]), -1)
     theta = torch.atan2(syx, sxx)
     c, s = torch.cos(theta), torch.sin(theta)
     tx = qc[:, 0] - (c * pc[:, 0] - s * pc[:, 1])
@@ -94,21 +104,21 @@ def _weighted_p2l(src, dst, normals, w):
     return x, torch.sum(wn, dim=-1), A, mse
 
 
-def _p2p_info(moved, dst, w):
+def _p2p_info(moved, dst, w, rsum=_plain_sum):
     """J^T J and mean squared residual of the point-to-point objective."""
     r = dst - moved
     mx, my = moved[..., 0], moved[..., 1]
-    sw = torch.sum(w, dim=-1)
+    sw = rsum(w, -1)
     z = torch.zeros_like(sw)
-    a02 = torch.sum(w * -my, dim=-1)
-    a12 = torch.sum(w * mx, dim=-1)
-    a22 = torch.sum(w * (mx * mx + my * my), dim=-1)
+    a02 = rsum(w * -my, -1)
+    a12 = rsum(w * mx, -1)
+    a22 = rsum(w * (mx * mx + my * my), -1)
     info = torch.stack([
         torch.stack([sw, z, a02], -1),
         torch.stack([z, sw, a12], -1),
         torch.stack([a02, a12, a22], -1),
     ], -2)
-    mse = torch.sum(w * torch.sum(r * r, dim=-1), dim=-1) / torch.clamp(2.0 * sw, min=1.0)
+    mse = rsum(w * torch.sum(r * r, dim=-1), -1) / torch.clamp(2.0 * sw, min=1.0)
     return info, mse
 
 
@@ -141,9 +151,13 @@ def _trim_threshold(d2, valid, ratio):
 
 
 def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
-               cfg: ICPConfig, source_weights=None, target_weights=None):
+               cfg: ICPConfig, source_weights=None, target_weights=None,
+               lone_rows=None):
     """ICP over G lanes. Source and target are shared ([N, 2] / [M, 2]) or
-    per lane ([G, N, 2] / [G, M, 2]); masks and weights follow their cloud."""
+    per lane ([G, N, 2] / [G, M, 2]); masks and weights follow their cloud.
+    ``lone_rows`` says that the G lanes are a sweep's lanes of that many
+    each, whose point-to-point sums are added as one lane's lone call of
+    ``lone_rows`` adds them (``lone_sums.lone_sum``)."""
     dtype = source_points.dtype
     dev = source_points.device
     G = guesses.shape[0]
@@ -153,6 +167,8 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
 
     def take(table, idx):  # table rows idx (G, N), shared or per lane
         return table[lanes, idx] if per_lane else table[idx]
+
+    rsum = _plain_sum if lone_rows is None else partial(lone_sum, rows=lone_rows)
 
     if cfg.point_to_line:
         tgt_normals = estimate_normals(
@@ -198,15 +214,15 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
         if cfg.point_to_line:
             delta_l, n_con, info_l, mse_l = _weighted_p2l(
                 moved, matched, take(tgt_normals, safe_idx), ws)
-            delta_p = _weighted_procrustes(moved, matched, ws)
-            info_p, mse_p = _p2p_info(moved, matched, ws)
+            delta_p = _weighted_procrustes(moved, matched, ws, rsum)
+            info_p, mse_p = _p2p_info(moved, matched, ws, rsum)
             use_l = n_con >= 3
             delta = torch.where(use_l[:, None], delta_l, delta_p)
             new_info = torch.where(use_l[:, None, None], info_l, info_p)
             new_mse = torch.where(use_l, mse_l, mse_p)
         else:
-            delta = _weighted_procrustes(moved, matched, ws)
-            new_info, new_mse = _p2p_info(moved, matched, ws)
+            delta = _weighted_procrustes(moved, matched, ws, rsum)
+            new_info, new_mse = _p2p_info(moved, matched, ws, rsum)
         new_pose = se2_compose(delta, pose)
 
         n_rot = torch.cat([torch.abs(wrap_angle(delta[:, 2]))[:, None],
@@ -269,10 +285,38 @@ def icp_multistart(source_points, source_mask, target_points, target_mask,
 
 def icp_pairs(source_points, source_mask, target_points, target_mask, guesses,
               config: ICPConfig = ICPConfig(), source_weights=None,
-              target_weights=None) -> ICPResult:
+              target_weights=None, lone_rows=None) -> ICPResult:
     """L independent registrations at once: lane l aligns source_points[l]
     ([L, N, 2]) onto target_points[l] ([L, M, 2]) from guesses[l] ([L, 3]);
     weights are [L, N] / [L, M]. Lane l's result equals
-    ``icp(source_points[l], ..., guesses[l])``."""
+    ``icp(source_points[l], ..., guesses[l])``; bit for bit on a CUDA card
+    with ``lone_rows`` 1 (:func:`_icp_lanes`)."""
     return _icp_lanes(source_points, source_mask, target_points, target_mask,
-                      guesses, config, source_weights, target_weights)
+                      guesses, config, source_weights, target_weights,
+                      lone_rows)
+
+
+def icp_multistart_lanes(source_points, source_mask, target_points,
+                         target_mask, guesses, guess_mask,
+                         config: ICPConfig = ICPConfig(), source_weights=None,
+                         target_weights=None) -> ICPResult:
+    """:func:`icp_multistart` over B sweep lanes at once: lane b runs its G
+    starts ``guesses[b]`` (B, G, 3) from the source (shared [N, 2] or its
+    own [B, N, 2]) onto its own target [B, M, 2]; weights are [B, N] /
+    [B, M]. Returns the ICPResult with fields (B, G, ...); lane b equals
+    ``icp_multistart`` on lane b's operands (the B * G starts are the lanes
+    of one :func:`_icp_lanes` call, summed as lone calls of G starts)."""
+    B, G = guesses.shape[:2]
+
+    def per_start(x):
+        return None if x is None else x.repeat_interleave(G, dim=0)
+
+    shared = source_points.ndim == 2
+    res = _icp_lanes(
+        source_points if shared else per_start(source_points),
+        source_mask if shared else per_start(source_mask),
+        per_start(target_points), per_start(target_mask),
+        guesses.reshape(B * G, 3), config, per_start(source_weights),
+        per_start(target_weights), lone_rows=G)
+    res = ICPResult(*(f.reshape((B, G) + f.shape[1:]) for f in res))
+    return res._replace(ok=res.ok & guess_mask)

@@ -86,7 +86,11 @@ def _binned(points, mask, spec: VoxelGridSpec, max_out: int, conf=None):
 
 def voxel_downsample(points, mask, spec: VoxelGridSpec, max_out: int):
     """(points [N, 2], mask [N]) -> centroids of occupied cells
-    (out_points [max_out, 2], out_mask [max_out])."""
+    (out_points [max_out, 2], out_mask [max_out]). A leading lane axis
+    ([L, N, 2], [L, N]) bins each lane on its own grid, each lane's sums
+    those it would get alone."""
+    if points.ndim == 3:
+        return _binned(points, mask, spec, max_out)[:2]
     centroids, out_mask, _ = _binned(points[None], mask[None], spec, max_out)
     return centroids[0], out_mask[0]
 

@@ -55,12 +55,23 @@ class GraphState(NamedTuple):
     log_scale_anchor: torch.Tensor  # (2,)
 
 
-def cholesky_nan(m: torch.Tensor) -> torch.Tensor:
+def cholesky_nan(m: torch.Tensor, lanes=None) -> torch.Tensor:
     """Lower Cholesky factor, all-NaN where ``m`` is not positive definite
-    (``jnp.linalg.cholesky`` returns NaN there and callers rely on it)."""
-    L, info = torch.linalg.cholesky_ex(m)
+    (``jnp.linalg.cholesky`` returns NaN there and callers rely on it).
+    With ``lanes``, of B lanes' matrices, one factorization a listed lane
+    (:func:`_each_lane`)."""
+    if lanes is None:
+        L, info = torch.linalg.cholesky_ex(m)
+    else:  # each lane's factor kept column-major, as cuSOLVER returns one
+        Lt, info = _each_lane(_transposed_cholesky, lanes, m)
+        L = Lt.mT
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(L, float("nan")), L)
+
+
+def _transposed_cholesky(m):
+    L, info = torch.linalg.cholesky_ex(m)
+    return L.mT, info
 
 
 def sigmas_to_sqrt_info(sigmas: torch.Tensor) -> torch.Tensor:
@@ -68,12 +79,14 @@ def sigmas_to_sqrt_info(sigmas: torch.Tensor) -> torch.Tensor:
     return torch.diag(1.0 / sigmas)
 
 
-def cov_to_sqrt_info(cov: torch.Tensor) -> torch.Tensor:
+def cov_to_sqrt_info(cov: torch.Tensor, lanes=None) -> torch.Tensor:
     """Full covariance -> upper-triangular whitening R with R^T R = cov^-1
-    (NaN when the information is not positive definite)."""
+    (NaN when the information is not positive definite); with ``lanes``,
+    of B lanes' covariances (B, 3, 3), the listed lanes' (the 3 x 3
+    inverses batch as they are alone, the Cholesky factors do not)."""
     info, _ = torch.linalg.inv_ex(cov)
     info = 0.5 * (info + info.transpose(-1, -2))
-    return cholesky_nan(info).transpose(-1, -2)
+    return cholesky_nan(info, lanes).transpose(-1, -2)
 
 
 def graph_init(config: GraphConfig, device) -> GraphState:
@@ -158,9 +171,11 @@ def _linearize(xi, xj, z, sqrt_info, robust, scaled, log_scale):
     return sw * r, sw * J
 
 
-def _assemble_normal_equations(state: GraphState, config: GraphConfig):
-    """H (n, n) and b (n,) at the current estimates, n = 3K (+2 with scale
-    estimation, whose variables take the last two rows/columns)."""
+def _linear_system(state: GraphState, config: GraphConfig):
+    """The whitened stacked Jacobian A (F*3, n) and residual r (F*3,) of the
+    between factors, n = 3K (+2 with scale estimation, whose variables take
+    the last two columns), and the prior's Jacobian J0 (3, 3) and residual
+    r0 (3,)."""
     K = config.max_poses
     F = state.f_i.shape[0]
     dev = state.poses.device
@@ -174,7 +189,7 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig):
     J = J * active[:, None, None]
 
     n = 3 * K + (2 if config.estimate_scale else 0)
-    A = J.new_zeros((F, 3, n + 3))  # batched under optimize_batch's vmap
+    A = J.new_zeros((F, 3, n + 3))  # batched under a vmap over graphs
     ar = torch.arange(F, device=dev)
     cols = torch.arange(3, device=dev)
     ci = 3 * state.f_i[:, None] + cols  # (F, 3)
@@ -184,17 +199,6 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig):
     if config.estimate_scale:
         A[:, :, 3 * K: 3 * K + 2] = J[..., 6:8]
     A = A[..., :n].reshape(F * 3, n)
-    H = torch.matmul(A.T, A)
-    b = torch.matmul(A.T, r.reshape(F * 3))
-
-    if config.estimate_scale:
-        sp = config.scale_prior_sigma
-        sx, sy = sp if isinstance(sp, (tuple, list)) else (sp, sp)
-        w_s = torch.tensor([1.0 / sx**2, 1.0 / sy**2], dtype=torch.float32,
-                           device=dev)
-        s = torch.arange(3 * K, 3 * K + 2, device=dev)
-        H[s, s] += w_s
-        b[s] += w_s * (state.log_scale - state.log_scale_anchor)
 
     def fprior(d):
         return torch.matmul(state.prior_sqrt_info, se2_logmap(
@@ -202,68 +206,155 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig):
                         se2_retract(state.poses[0], d))))
 
     z3 = torch.zeros(3, dtype=torch.float32, device=dev)
-    r0 = fprior(z3)
-    J0 = jacfwd(fprior)(z3)
-    H[:3, :3] += torch.matmul(J0.T, J0)
-    b[:3] += torch.matmul(J0.T, r0)
+    return A, r.reshape(F * 3), jacfwd(fprior)(z3), fprior(z3)
+
+
+def _products(A, r, J0, r0):
+    """The library products of one graph's normal equations: A^T A, A^T r,
+    J0^T J0, J0^T r0 (the two of r None without r)."""
+    if r is None:
+        return torch.matmul(A.T, A), None, torch.matmul(J0.T, J0), None
+    return (torch.matmul(A.T, A), torch.matmul(A.T, r), torch.matmul(J0.T, J0),
+            torch.matmul(J0.T, r0))
+
+
+def _each_lane(fn, lanes, *args):
+    """``fn`` of each listed lane's operands (every arg with a leading lane
+    axis B), one call a lane, as the lane's lone call makes it: cuBLAS and
+    cuSOLVER pick their kernels, and so their roundings, by the batch, and
+    a batched call rounds a lane otherwise. Returns fn's outputs stacked
+    over the B lanes, zero in the lanes not listed."""
+    outs = [fn(*(a[i] for a in args)) for i in lanes]
+    B = args[0].shape[0]
+    if list(lanes) == list(range(B)):
+        return [torch.stack(parts) for parts in zip(*outs)]
+    idx = torch.as_tensor(lanes, device=args[0].device)
+    stacked = []
+    for parts in zip(*outs):
+        full = parts[0].new_zeros((B,) + parts[0].shape)
+        full[idx] = torch.stack(parts)
+        stacked.append(full)
+    return stacked
+
+
+def _assemble_normal_equations(state: GraphState, config: GraphConfig,
+                               lanes=None, need_b: bool = True):
+    """H (n, n) and b (n,) at the current estimates, n = 3K (+2 with scale
+    estimation, whose variables take the last two rows/columns); b None
+    without ``need_b``. With ``lanes`` (a list of lane indices), ``state``
+    holds B graphs (every field with a leading lane axis): H (B, n, n) and
+    b (B, n), their linear systems batched and each listed lane's products
+    its own calls (:func:`_each_lane`; the other lanes' hold none)."""
+    K = config.max_poses
+    dev = state.poses.device
+    if lanes is None:
+        A, r, J0, r0 = _linear_system(state, config)
+        H, b, JtJ, Jtr = _products(A, r if need_b else None, J0, r0)
+    else:
+        if state.poses.device.type == "cpu":
+            A, r, J0, r0 = (torch.stack(x) for x in zip(*(
+                _linear_system(GraphState(*(f[i] for f in state)), config)
+                for i in range(state.poses.shape[0]))))
+        else:
+            A, r, J0, r0 = vmap(lambda st: _linear_system(st, config))(state)
+        # each lane's J0 stored as jacfwd stores the lone one (transposed),
+        # so that its products take the lone call's kernel
+        J0 = J0.transpose(-1, -2).contiguous().transpose(-1, -2)
+        if need_b:
+            H, b, JtJ, Jtr = _each_lane(_products, lanes, A, r, J0, r0)
+        else:
+            H, JtJ = _each_lane(lambda a, j: _products(a, None, j, None)[::2],
+                                lanes, A, J0)
+            b = None
+
+    if config.estimate_scale:
+        sp = config.scale_prior_sigma
+        sx, sy = sp if isinstance(sp, (tuple, list)) else (sp, sp)
+        w_s = torch.tensor([1.0 / sx**2, 1.0 / sy**2], dtype=torch.float32,
+                           device=dev)
+        s = torch.arange(3 * K, 3 * K + 2, device=dev)
+        H[..., s, s] += w_s
+        if b is not None:
+            b[..., s] += w_s * (state.log_scale - state.log_scale_anchor)
+
+    H[..., :3, :3] += JtJ
+    if b is not None:
+        b[..., :3] += Jtr
 
     valid = torch.repeat_interleave(
-        torch.arange(K, device=dev) < state.num_poses, 3)
+        torch.arange(K, device=dev) < state.num_poses[..., None], 3, dim=-1)
     if config.estimate_scale:
-        valid = torch.cat([valid, torch.ones(2, dtype=torch.bool, device=dev)])
-    H = H + torch.diag(torch.where(valid, config.damping, 1.0).to(torch.float32))
+        valid = torch.cat([valid, torch.ones(valid.shape[:-1] + (2,),
+                                             dtype=torch.bool, device=dev)],
+                          dim=-1)
+    H = H + torch.diag_embed(torch.where(valid, config.damping, 1.0).to(
+        torch.float32))
     return H, b
 
 
-def _scaled_cho_factor(H):
-    """Jacobi-preconditioned Cholesky: H = D (L L^T) D, D = diag(sqrt(H_ii))."""
-    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
-    Hs = H / (d[:, None] * d[None, :])
-    return cholesky_nan(Hs), d
+def _scaled_cho_factor(H, lanes=None):
+    """Jacobi-preconditioned Cholesky: H = D (L L^T) D, D = diag(sqrt(H_ii));
+    with ``lanes``, of B lanes' H (B, n, n), one factorization a listed
+    lane."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
+    Hs = H / (d[..., :, None] * d[..., None, :])
+    return cholesky_nan(Hs, lanes), d
 
 
-def _scaled_cho_solve(Lf, b):
+def _scaled_cho_solve(Lf, b, lanes=None):
+    """Solve with :func:`_scaled_cho_factor`'s factor for b (n,) or (n, m)
+    (a leading lane axis on both with ``lanes``, one solve a listed
+    lane)."""
     L, d = Lf
-    vec = b.ndim == 1
-    bb = (b / d)[:, None] if vec else b / d[:, None]
-    x = torch.cholesky_solve(bb, L)
-    x = x / (d[:, None])
-    return x[:, 0] if vec else x
+    vec = b.ndim == d.ndim
+    bb = (b / d)[..., None] if vec else b / d[..., None]
+    if lanes is None:
+        x = torch.cholesky_solve(bb, L)
+    else:
+        x = _each_lane(lambda u, f: (torch.cholesky_solve(u, f),), lanes,
+                       bb, L)[0]
+    x = x / d[..., None]
+    return x[..., 0] if vec else x
 
 
 def _gn_step(state: GraphState, poses, log_scale, prev_delta, lam,
-             config: GraphConfig):
+             config: GraphConfig, lanes=None):
     """One relinearized Gauss-Newton sweep from (poses, log_scale) with the
     adaptive Levenberg damping ``lam`` and the trust-region step clamp.
     Returns (poses, log_scale, max_delta, lam); ``max_delta`` is inf when
-    the solve failed."""
+    the solve failed. With ``lanes`` every argument holds B graphs (a
+    leading lane axis) and the listed lanes are stepped
+    (:func:`_assemble_normal_equations`)."""
     K = config.max_poses
     dev = poses.device
-    valid = (torch.arange(K, device=dev) < state.num_poses)[:, None]
+    valid = (torch.arange(K, device=dev) < state.num_poses[..., None])[..., None]
     st = state._replace(poses=poses, log_scale=log_scale)
-    H, b = _assemble_normal_equations(st, config)
-    Hd = H + lam * torch.diag(torch.diagonal(H))
-    delta = -_scaled_cho_solve(_scaled_cho_factor(Hd), b)
-    finite = torch.all(torch.isfinite(delta))
-    delta = torch.where(finite, delta, torch.zeros_like(delta))
+    H, b = _assemble_normal_equations(st, config, lanes)
+    Hd = H + lam[..., None, None] * torch.diag_embed(
+        torch.diagonal(H, dim1=-2, dim2=-1))
+    delta = -_scaled_cho_solve(_scaled_cho_factor(Hd, lanes), b, lanes)
+    finite = torch.all(torch.isfinite(delta), dim=-1)
+    delta = torch.where(finite[..., None], delta, torch.zeros_like(delta))
     if config.estimate_scale:
-        ds = delta[3 * K: 3 * K + 2]
-        delta = delta[: 3 * K]
+        ds = delta[..., 3 * K: 3 * K + 2]
+        delta = delta[..., : 3 * K]
     else:
-        ds = torch.zeros(2, device=dev)
-    delta = delta.reshape(K, 3)
+        ds = torch.zeros(delta.shape[:-1] + (2,), device=dev)
+    delta = delta.reshape(delta.shape[:-1] + (K, 3))
     vdelta = torch.where(valid, delta, torch.zeros_like(delta))
     if config.step_clamp_t > 0.0:
-        big_t = torch.max(torch.abs(vdelta[:, :2]))
-        big_r = torch.max(torch.abs(vdelta[:, 2]))
+        big_t = torch.amax(torch.abs(vdelta[..., :2]), dim=(-2, -1))
+        big_r = torch.amax(torch.abs(vdelta[..., 2]), dim=-1)
         shrink = torch.clamp(torch.minimum(
             config.step_clamp_t / torch.clamp(big_t, min=1e-12),
             config.step_clamp_r / torch.clamp(big_r, min=1e-12)), max=1.0)
-        delta, vdelta, ds = delta * shrink, vdelta * shrink, ds * shrink
+        delta = delta * shrink[..., None, None]
+        vdelta = vdelta * shrink[..., None, None]
+        ds = ds * shrink[..., None]
     log_scale = log_scale + ds
     poses = torch.where(valid, se2_retract(poses, delta), poses)
-    max_delta = torch.maximum(torch.max(torch.abs(vdelta)),
-                              torch.max(torch.abs(ds)))
+    max_delta = torch.maximum(torch.amax(torch.abs(vdelta), dim=(-2, -1)),
+                              torch.amax(torch.abs(ds), dim=-1))
     max_delta = torch.where(finite, max_delta,
                             torch.full_like(max_delta, float("inf")))
     grew = finite & (max_delta > prev_delta * 1.05)
@@ -290,14 +381,16 @@ def optimize(state: GraphState, config: GraphConfig) -> GraphState:
     return state._replace(poses=poses, log_scale=log_scale)
 
 
-def marginal_covariance(state: GraphState, keys, config: GraphConfig):
+def marginal_covariance(state: GraphState, keys, config: GraphConfig,
+                        lanes=None):
     """Marginal covariance of pose ``keys`` (gtsam's ``marginalCovariance``):
     the (k, k) blocks of H⁻¹ at the current linearization, from one
     factorization. (3, 3) for one key (an int or a 0-d tensor), (M, 3, 3)
-    for a 1-D tensor of M keys."""
+    for a 1-D tensor of M keys. With ``lanes``, of B graphs (the listed
+    lanes' blocks; a leading lane axis on the result)."""
     K = config.max_poses
-    H, _ = _assemble_normal_equations(state, config)
-    Lf = _scaled_cho_factor(H)
+    H, _ = _assemble_normal_equations(state, config, lanes, need_b=False)
+    Lf = _scaled_cho_factor(H, lanes)
     dev = H.device
     if isinstance(keys, int):
         k = torch.full((1,), keys, dtype=torch.int64, device=dev)
@@ -308,9 +401,11 @@ def marginal_covariance(state: GraphState, keys, config: GraphConfig):
     rows = (3 * k[:, None] + torch.arange(3, device=dev)).reshape(-1)
     e = torch.zeros((n, 3 * M), dtype=torch.float32, device=dev)
     e[rows, torch.arange(3 * M, device=dev)] = 1.0
-    cols = _scaled_cho_solve(Lf, e)  # (n, 3M)
-    cov = cols[rows].reshape(M, 3, M, 3).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
-    return cov if isinstance(keys, torch.Tensor) and keys.ndim == 1 else cov[0]
+    e = e.expand(H.shape[:-2] + e.shape)
+    cols = _scaled_cho_solve(Lf, e, lanes)  # (..., n, 3M)
+    cov = cols[..., rows, :].reshape(cols.shape[:-2] + (M, 3, M, 3))
+    cov = cov.diagonal(dim1=-4, dim2=-2).movedim(-1, -3)
+    return cov if isinstance(keys, torch.Tensor) and keys.ndim == 1 else cov[..., 0, :, :]
 
 
 def optimize_with_marginal(state: GraphState, k, config: GraphConfig):
@@ -320,28 +415,105 @@ def optimize_with_marginal(state: GraphState, k, config: GraphConfig):
     return state, marginal_covariance(state, k, config)
 
 
-def optimize_batch(states: GraphState, config: GraphConfig) -> GraphState:
+def optimize_batch(states: GraphState, config: GraphConfig, active=None,
+                   lane_calls: bool = False) -> GraphState:
     """``optimize`` over a batch of graphs (every field with a leading batch
     axis), as the JAX package's vmap of its ``while_loop`` runs: a graph
     whose step fell below tolerance keeps its estimate while the others go
-    on, up to ``config.gn_iters`` sweeps."""
+    on, up to ``config.gn_iters`` sweeps. A graph where the (B,) mask
+    ``active`` is False is not stepped. With ``lane_calls`` (a sweep's
+    lanes) each stepping graph's products and factorizations are calls of
+    its own, as in its lone ``optimize`` (:func:`_each_lane`); one host
+    read a sweep either way."""
     B = states.poses.shape[0]
     dev = states.poses.device
     step = vmap(lambda st, p, s, d, lam: _gn_step(st, p, s, d, lam, config))
     poses, log_scale = states.poses, states.log_scale
     prev_delta = torch.full((B,), float("inf"), device=dev)
+    if active is not None:
+        prev_delta = torch.where(active, prev_delta, torch.zeros_like(prev_delta))
     lam = torch.zeros(B, device=dev)
     for _ in range(config.gn_iters):
         active = prev_delta > config.convergence_tol
-        if not bool(active.any()):
-            break
-        out = step(states, poses, log_scale, prev_delta, lam)
+        if lane_calls:
+            lanes = torch.nonzero(active)[:, 0].tolist()  # host read
+            if not lanes:
+                break
+            out = _gn_step(states, poses, log_scale, prev_delta, lam, config,
+                           lanes)
+        else:
+            if not bool(active.any()):
+                break
+            out = step(states, poses, log_scale, prev_delta, lam)
         a = active[:, None, None]
         poses = torch.where(a, out[0], poses)
         log_scale = torch.where(a[:, 0], out[1], log_scale)
         prev_delta = torch.where(active, out[2], prev_delta)
         lam = torch.where(active, out[3], lam)
     return states._replace(poses=poses, log_scale=log_scale)
+
+
+# ----------------------------------------------------------------------
+# a sweep's lanes: every field of a GraphState with a leading axis of B
+# lanes, each lane's results those of its lone graph
+# ----------------------------------------------------------------------
+
+
+def set_pose_estimate_lanes(state: GraphState, k: int, pose) -> GraphState:
+    """:func:`set_pose_estimate` of key ``k`` (an int) in B lanes, pose (B,
+    3)."""
+    poses = state.poses.clone()
+    poses[:, k] = pose
+    return state._replace(poses=poses,
+                          num_poses=torch.clamp(state.num_poses, min=k + 1))
+
+
+def add_prior_lanes(state: GraphState, pose, sqrt_info) -> GraphState:
+    """:func:`add_prior` in B lanes: pose (B, 3), sqrt_info (B, 3, 3)."""
+    state = state._replace(prior_pose=pose.clone(), prior_sqrt_info=sqrt_info)
+    return set_pose_estimate_lanes(state, 0, pose)
+
+
+def add_between_lanes(state: GraphState, i, j, z, sqrt_info, robust=False,
+                      enabled=True, scaled=False) -> GraphState:
+    """:func:`add_between` in B lanes: each argument is a host value shared
+    by the lanes or a tensor with a leading lane axis (``enabled`` a (B,)
+    mask: a lane where it is False keeps its graph bit for bit)."""
+    B, F = state.f_i.shape
+    dev = state.f_i.device
+    lanes = torch.arange(B, device=dev)
+    en = torch.as_tensor(enabled, device=dev).expand(B)
+    slot = torch.where(en, state.num_factors,
+                       torch.full_like(state.num_factors, F - 1))
+
+    def put(arr, val):
+        cur = arr[lanes, slot]
+        val = torch.as_tensor(val, dtype=arr.dtype, device=dev).expand(cur.shape)
+        out = arr.clone()
+        out[lanes, slot] = torch.where(
+            en.reshape((B,) + (1,) * (cur.ndim - 1)), val, cur)
+        return out
+
+    return state._replace(
+        f_i=put(state.f_i, i), f_j=put(state.f_j, j), f_z=put(state.f_z, z),
+        f_sqrt_info=put(state.f_sqrt_info, sqrt_info),
+        f_robust=put(state.f_robust, robust),
+        f_scaled=put(state.f_scaled, scaled),
+        num_factors=state.num_factors + en.to(torch.int64),
+    )
+
+
+def optimize_with_marginal_lanes(state: GraphState, k: int,
+                                 config: GraphConfig, active=None):
+    """:func:`optimize_with_marginal` in B lanes, each lane's bits those of
+    its lone call (``optimize_batch`` with ``lane_calls``). With ``active``
+    (B,), an inactive lane keeps its graph and its returned marginal is
+    zero (the caller keeps the old one)."""
+    state = optimize_batch(state, config, active, lane_calls=True)
+    B = state.poses.shape[0]
+    lanes = (list(range(B)) if active is None
+             else torch.nonzero(active)[:, 0].tolist())  # host read
+    return state, marginal_covariance(state, k, config, lanes)
 
 
 class Smoother:

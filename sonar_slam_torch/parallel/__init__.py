@@ -2,13 +2,15 @@
 
 Counterpart of ``sonar_slam_tpu/parallel/``. The JAX package runs sweep
 lanes and robots on the lanes of a device mesh (``vmap``, ``shard_map``,
-``all_gather``). One card has no mesh, and the port's ``slam_scan`` is a
-host loop, so here lanes and robots run one after another on one device,
-and the keyframe axis is one batch:
+``all_gather``). One card has no mesh: here the sweep's lanes run as one
+lane-batched scan on one device (``slam/lanes.py``, as the JAX package's
+``vmap`` does), robots one after another, and the keyframe axis is one
+batch:
 
 * ``sweep``: one keyframe stream replayed under many ``SlamParams`` lanes
-  (BASELINE.json configs[4], 64 CFAR/ICP hyperparameter configs); identical
-  lanes give identical results, bit for bit.
+  (BASELINE.json configs[4], 64 CFAR/ICP hyperparameter configs), every
+  lane advancing through each keyframe step together, each lane its lone
+  scan's result (bit for bit on a card).
 * ``keyframe_shard``: the NSSM gate and the global transform over all
   keyframes at once.
 * ``multi_robot``: keyframe summaries, inter-robot loop proposals, PCM

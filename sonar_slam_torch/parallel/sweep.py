@@ -1,14 +1,16 @@
 """Hyperparameter sweeps: one keyframe stream replayed under many
 ``SlamParams`` lanes.
 
-Counterpart of ``sonar_slam_tpu/parallel/sweep.py``. The JAX package
-``vmap``s its traced ``slam_scan`` over the lanes and shards the lane axis
-over a device mesh. Here ``slam_scan`` is a host loop with host branches
-(``slam/core.py``), not a traced program that could be ``vmap``ped, and one
-card has no mesh to shard over. So ``sweep_scan`` runs the lanes one after
-another on the frames' device and stacks their results on a leading lane
-axis: lane i is exactly what ``slam_scan`` gives for lane i's parameters
-alone. ``make_config_mesh`` has no counterpart.
+Counterpart of ``sonar_slam_tpu/parallel/sweep.py``, which ``vmap``s its
+traced ``slam_scan`` over the lanes (and may shard the lane axis over a
+device mesh). Here ``sweep_scan`` runs every lane through each keyframe
+step together, as one lane-batched scan on the frames' device
+(``slam/lanes.py``): every ``SlamParams`` field is a (B, ...) tensor, the
+state carries a leading lane axis, and the host reads only which lanes
+are still going. Lane i is ``slam_scan`` of lane i's parameters alone: bit
+for bit on a CUDA card, within rounding on the CPU (``slam/lanes.py``).
+``sweep_scan_loop`` is the plain version, the lanes one after another.
+One card has no mesh: ``make_config_mesh`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..slam.core import KeyframeInput, SlamDims, SlamParams, slam_scan
+from ..slam.lanes import slam_scan_lanes
 
 
 def stack_lanes(trees: list, device):
@@ -84,12 +87,19 @@ def lane_params(stacked: SlamParams, i: int) -> SlamParams:
 
 def sweep_scan(frames: KeyframeInput, stacked_params: SlamParams,
                dims: SlamDims):
-    """Replay the same keyframe stream under B parameter lanes.
+    """Replay the same keyframe stream under B parameter lanes at once.
 
     frames: un-batched KeyframeInput (shared across lanes).
     stacked_params: SlamParams with leading lane axis B (``stack_params``).
-    Returns (carry, outputs) with every leaf stacked on a leading lane axis
-    (``stack_lanes``)."""
+    Returns (carry, outputs) with every leaf stacked on a leading lane axis,
+    as ``stack_lanes`` stacks the lanes' lone ``slam_scan`` results."""
+    return slam_scan_lanes(frames, stacked_params, dims)
+
+
+def sweep_scan_loop(frames: KeyframeInput, stacked_params: SlamParams,
+                    dims: SlamDims):
+    """The plain version of :func:`sweep_scan`: ``slam_scan`` of each lane's
+    parameters, one lane after another, stacked by ``stack_lanes``."""
     B = stacked_params.prior_sigmas.shape[0]
     runs = [slam_scan(frames, lane_params(stacked_params, i), dims)
             for i in range(B)]

@@ -20,12 +20,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..cloud.knn import BIG, pairwise_sq_dists, sq32
+from ..cloud.knn import BIG, _gate, pairwise_sq_dists, sq32
 from ..geometry import se2_between, se2_compose, se2_rotmat, se2_transform_points
 from ..graph.factor_graph import cholesky_nan
 
 # Sobol samples scored per chunk: bounds the (chunk * N, M) distance matrix
 _COST_CHUNK = 64
+# the lane-batched scoring's budget for one chunk's distance blocks, in
+# bytes: (lane, sample) pairs are scored this many bytes at a time
+LANE_COST_BUDGET = 1 << 30
 
 
 def sobol_unit_samples(n: int, dim: int = 3, seed: int = 0) -> np.ndarray:
@@ -55,6 +58,40 @@ def match_count_costs(source_points, source_mask, target_points, target_mask,
         near = (torch.min(d2, dim=-1).values <= gate).reshape(c, N)
         counts.append(torch.sum(near & source_mask[None, :], dim=-1))
     return -torch.cat(counts).to(torch.float32), transforms
+
+
+def match_count_costs_lanes(source_points, source_mask, target_points,
+                            target_mask, source_pose, target_pose, deltas,
+                            point_noise):
+    """:func:`match_count_costs` over B sweep lanes: source shared ([N, 2],
+    [N]) or per lane ([B, N, 2], [B, N]), targets [B, M, 2], poses (B, 3),
+    deltas (B, S, 3), per-lane radii ``point_noise`` (B,). The (lane,
+    sample) pairs are scored in chunks of :data:`LANE_COST_BUDGET` bytes of
+    distance blocks, so the number of chunks hardly grows with B. Lane b
+    equals the lone call's (costs (B, S), transforms (B, S, 3))."""
+    B, S = deltas.shape[:2]
+    N, M = source_points.shape[-2], target_points.shape[-2]
+    sample_source_pose = se2_compose(source_pose[:, None], deltas)
+    transforms = se2_between(target_pose[:, None], sample_source_pose)
+    gate = _gate(point_noise, transforms[..., 0])  # (B, 1)
+    lane = torch.arange(B, device=deltas.device).repeat_interleave(S)
+    src = source_points if source_points.ndim == 2 else source_points[lane]
+    smask = source_mask if source_mask.ndim == 1 else source_mask[lane]
+    tf = transforms.reshape(B * S, 3)
+    pairs = max(1, LANE_COST_BUDGET // (N * M * 4))
+    counts = []
+    for i in range(0, B * S, pairs):
+        sl = slice(i, i + pairs)
+        moved = se2_transform_points(src if src.ndim == 2 else src[sl],
+                                     tf[sl])  # (c, N, 2)
+        d2 = pairwise_sq_dists(moved, target_points[lane[sl]])
+        d2 = torch.where(target_mask[lane[sl]][:, None, :], d2,
+                         torch.full_like(d2, BIG))
+        near = torch.min(d2, dim=-1).values <= gate.reshape(B)[lane[sl], None]
+        counts.append(torch.sum(near & (smask if smask.ndim == 1
+                                        else smask[sl]), dim=-1))
+    costs = -torch.cat(counts).to(torch.float32).reshape(B, S)
+    return costs, transforms
 
 
 class GlobalInitResult(NamedTuple):
@@ -105,6 +142,49 @@ def global_initialize(source_points, source_mask, target_points, target_mask,
     guess_mask = torch.arange(G, device=deltas.device) < torch.clamp(total, max=G)
     return GlobalInitResult(best_delta=deltas[best], best_cost=costs[best],
                             guess_poses=out[:G], guess_mask=guess_mask)
+
+
+def global_initialize_lanes(source_points, source_mask, target_points,
+                            target_mask, source_pose, target_pose, bounds,
+                            unit_samples, point_noise, num_guesses: int,
+                            dedup_eps: float = 0.01) -> GlobalInitResult:
+    """:func:`global_initialize` over B sweep lanes (operands as
+    :func:`match_count_costs_lanes` takes them; bounds (B, 3), unit samples
+    (B, S, 3)). Returns the GlobalInitResult with a leading lane axis; lane
+    b equals the lone call's."""
+    B = bounds.shape[0]
+    dev = bounds.device
+    lanes = torch.arange(B, device=dev)[:, None]
+    deltas = (2.0 * unit_samples - 1.0) * bounds[:, None, :]
+    deltas = torch.cat([torch.zeros((B, 1, 3), dtype=deltas.dtype,
+                                    device=dev), deltas], dim=1)
+    costs, _ = match_count_costs_lanes(source_points, source_mask,
+                                       target_points, target_mask, source_pose,
+                                       target_pose, deltas, point_noise)
+    order = torch.sort(costs, dim=-1, stable=True).indices
+    sample_poses = se2_compose(source_pose[:, None], deltas)
+    sorted_poses = sample_poses[lanes, order]
+    best = order[:, 0]
+
+    S = sorted_poses.shape[1]
+    rel = se2_between(sorted_poses[:, :, None, :], sorted_poses[:, None, :, :])
+    dist = torch.linalg.vector_norm(rel, dim=-1)
+    ar = torch.arange(S, device=dev)
+    causal_close = (dist < dedup_eps) & (ar[:, None] < ar[None, :])
+    keeps = ~torch.any(causal_close, dim=1)
+    total = torch.sum(keeps.to(torch.int64), dim=-1)
+
+    G = num_guesses
+    kept_rank = torch.cumsum(keeps.to(torch.int64), dim=-1) - 1
+    slot = torch.where(keeps & (kept_rank < G), kept_rank,
+                       torch.full_like(kept_rank, G))
+    out = torch.zeros((B, G + 1, 3), dtype=torch.float32, device=dev)
+    out.index_put_((lanes.expand(B, S), slot), sorted_poses.to(torch.float32))
+    guess_mask = (torch.arange(G, device=dev)
+                  < torch.clamp(total, max=G)[:, None])
+    return GlobalInitResult(best_delta=deltas[lanes[:, 0], best],
+                            best_cost=costs[lanes[:, 0], best],
+                            guess_poses=out[:, :G], guess_mask=guess_mask)
 
 
 def max_eig_2x2(m: torch.Tensor) -> torch.Tensor:
@@ -172,6 +252,59 @@ def estimate_pose_covariance(samples, sample_mask, support_fraction: float = 0.8
     return mu[best], cov[best], n
 
 
+def estimate_pose_covariance_lanes(samples, sample_mask,
+                                   support_fraction: float = 0.8,
+                                   c_steps: int = 8, num_starts: int = 8):
+    """:func:`estimate_pose_covariance` over B sweep lanes: samples (B, G,
+    3), mask (B, G). Returns (mean (B, 3), cov (B, 3, 3), n (B,)); lane b
+    equals the lone call's."""
+    B, G = samples.shape[:2]
+    dev = samples.device
+    lanes = torch.arange(B, device=dev)
+    maskf = sample_mask.to(torch.float32)
+    n = torch.sum(sample_mask.to(torch.int64), dim=-1)
+    h = torch.ceil(support_fraction * n.to(torch.float32)).to(torch.int64)
+    ridge = 1e-9 * torch.eye(3, device=dev)
+
+    def mean_cov(w):  # w (B, P, G)
+        wsum = torch.clamp(torch.sum(w, dim=-1), min=1.0)
+        mu = torch.sum(samples[:, None] * w[..., None], dim=2) / wsum[..., None]
+        c = samples[:, None] - mu[:, :, None]
+        d = c * w[..., None]
+        cov = torch.matmul(d.transpose(-1, -2), c) / wsum[..., None, None]
+        return mu, cov
+
+    valid_idx = torch.sort((~sample_mask).to(torch.int64), dim=-1,
+                           stable=True).indices
+    nmax = torch.clamp(n, min=1)
+    starts = []
+    for s in range(num_starts):
+        pos = (s + torch.arange(4, device=dev) * num_starts) % nmax[:, None]
+        picks = torch.gather(valid_idx, 1, pos)
+        w = torch.zeros(B, G, device=dev)
+        w[lanes[:, None], picks] = 1.0
+        starts.append(w * maskf)
+    starts.append(maskf)
+    w = torch.stack(starts, dim=1)  # (B, P, G)
+
+    kth = torch.clamp(h - 1, 0, G - 1)
+    for _ in range(c_steps):
+        mu, cov = mean_cov(w)
+        inv, _ = torch.linalg.inv_ex(cov + ridge)
+        c = samples[:, None] - mu[:, :, None]
+        md = torch.einsum("bpgi,bpij,bpgj->bpg", c, inv, c)
+        md = torch.where(sample_mask[:, None], md, torch.full_like(md, 1e30))
+        srt = torch.sort(md, dim=-1).values
+        thresh = torch.gather(srt, 2, kth[:, None, None].expand(B, srt.shape[1], 1))
+        w = (md <= thresh).to(torch.float32) * maskf[:, None]
+    mu, cov = mean_cov(w)
+    logdet = _logdet_psd_3x3(cov + ridge)
+    dets = torch.where(torch.sum(w, dim=-1) >= h.to(torch.float32)[:, None],
+                       logdet, torch.full_like(logdet, 1e30))
+    best = torch.argmin(dets, dim=-1)
+    return mu[lanes, best], cov[lanes, best], n
+
+
 def localize_covariance(cov: torch.Tensor, mean_pose: torch.Tensor) -> torch.Tensor:
     """Unrotate a sample covariance into the local frame of the mean pose
     (batched over leading dims)."""
@@ -182,9 +315,23 @@ def localize_covariance(cov: torch.Tensor, mean_pose: torch.Tensor) -> torch.Ten
     return torch.cat([left, out[..., :, 2:]], dim=-1)
 
 
+def localize_covariance_lanes(cov: torch.Tensor,
+                              mean_pose: torch.Tensor) -> torch.Tensor:
+    """:func:`localize_covariance` of one covariance a lane, cov (B, 3, 3)
+    and mean (B, 3): lane b equals the lone call's, whose two products are
+    each lane's own calls (cuBLAS picks its kernel by the batch)."""
+    R = se2_rotmat(mean_pose[..., 2])
+    top = torch.stack([torch.matmul(r.transpose(-1, -2), c[:2, :])
+                       for r, c in zip(R, cov)])
+    out = torch.cat([top, cov[..., 2:, :]], dim=-2)
+    left = torch.stack([torch.matmul(o[:, :2], r) for o, r in zip(out, R)])
+    return torch.cat([left, out[..., :, 2:]], dim=-1)
+
+
 def apply_covariance_floor(cov: torch.Tensor, icp_odom_sigmas: torch.Tensor):
     """If det(cov) < det(diag(sigmas)^2) use the fixed model (batched over
-    leading dims). Returns (cov, used_floor)."""
-    default = torch.diag(icp_odom_sigmas ** 2)
+    leading dims; sigmas (3,), or (B, 3) for B lanes' covariances (B, 3,
+    3)). Returns (cov, used_floor)."""
+    default = torch.diag_embed(icp_odom_sigmas ** 2)
     small = torch.linalg.det(cov) < torch.linalg.det(default)
     return torch.where(small[..., None, None], default, cov), small

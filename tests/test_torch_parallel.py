@@ -3,11 +3,13 @@ the port against the JAX package.
 
 * Sweeps, at ``tests/test_parallel.py``'s dimensions: the JAX package
   ``vmap``s its scan over the lanes (on the 8-device CPU mesh for the
-  ``vary`` case); the port loops ``slam_scan`` over them. A loop has no lane
-  fusion, so the port's lanes of identical params are equal bit for bit to
-  each other and to a lone ``slam_scan``. Each port lane is within 1e-4 m /
-  rad of its JAX lane on poses (the tolerance of tests/test_torch_slam.py),
-  with the same keyframe and loop counts.
+  ``vary`` case); the port runs them as one lane-batched scan
+  (``slam/lanes.py``), whose lanes at these dimensions equal each other
+  and a lone ``slam_scan`` bit for bit on the CPU too; its plain version
+  ``sweep_scan_loop`` loops ``slam_scan`` over the lanes. Each port lane is within 1e-4 m / rad of
+  its JAX lane on poses (the tolerance of tests/test_torch_slam.py), with
+  the same keyframe and loop counts. tests/test_torch_sweep_lanes.py holds
+  the batched scan to the loop on lanes that close loops.
 * The keyframe axis: the NSSM gate's mask and counts and the target choice
   equal the JAX package's (on the 8-device mesh) and the port's own gate
   chain; the global transform is bit-equal to the keyframe-batched
@@ -51,7 +53,7 @@ from sonar_slam_torch.convert import dims_from_reference, params_from_reference
 from sonar_slam_torch.geometry import se2_inverse, se2_transform_points
 from sonar_slam_torch.parallel import keyframe_shard as tks
 from sonar_slam_torch.parallel import stack_params, sweep_scan
-from sonar_slam_torch.parallel.sweep import lane_params, vary
+from sonar_slam_torch.parallel.sweep import lane_params, sweep_scan_loop, vary
 from sonar_slam_torch.slam import KeyframeInput, slam_scan
 from sonar_slam_torch.slam.scan_matching import max_eig_2x2
 
@@ -192,6 +194,19 @@ def test_sweep_vary_lanes_against_the_mesh():
     for i in range(4):
         _assert_bit_equal(_lane(carry, i), _lane(carry, i + 4))
     _against_jax(carry, jcarry)
+
+
+def test_sweep_scan_loop():
+    """The plain version: each lane a lone ``slam_scan``, stacked by
+    ``stack_lanes``; bit for bit the batched ``sweep_scan``."""
+    frames = _port_frames(_frames())
+    lanes = vary(_port(_jax_params()), point_noise=[0.3, 0.6],
+                 ssm_max_translation=[2.0, 3.0])
+    stacked = stack_params(lanes)
+    carry, outputs = sweep_scan_loop(frames, stacked, DIMS)
+    assert carry.poses.shape[0] == 2 and carry.num_kf.tolist() == [6, 6]
+    _assert_bit_equal(_lane(carry, 1), slam_scan(frames, lanes[1], DIMS)[0])
+    _assert_bit_equal((carry, outputs), sweep_scan(frames, stacked, DIMS))
 
 
 def test_vary_validates_lengths():
