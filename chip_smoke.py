@@ -99,7 +99,14 @@ the script exits non-zero without printing the result line:
    replay at capacity 1024 against capacity 128; one launch a replay), each
    with its
    wall time and peak memory, and the keyframes, loops and ATE below,
-   exactly; see ``run_sweep``, ``run_two_robot`` and ``run_sharded``;
+   exactly; (d) a full-width point-to-line sweep: 8 lanes of (a)'s grid
+   over the full configuration (DR-basis aggregation off) on phase 4's
+   survey in one ``parallel.sweep_scan`` (one CFAR launch for the frames;
+   finite poses; lanes 0 and 7 bit for bit with a lone ``slam_scan`` and
+   pinned; launches a keyframe step at 8 lanes at most twice one lane's,
+   over the first 16 keyframes; wall time, per-lane seconds and peak
+   memory logged); see ``run_sweep``, ``run_two_robot``, ``run_sharded``
+   and ``run_full_sweep``;
 14. the accuracy CLIs, each run in process through its ``main`` with the
    launch counters reset just before, each result pinned exactly: (a)
    ``cli.multi_seed --full --seeds 1``, bench.py's production SOCA +
@@ -228,6 +235,16 @@ SWEEP_ATE_BAND_M = 0.005
 # 13a: the batched scan's kernel launches a keyframe step at 64 lanes may
 # be at most this many times those at one lane
 SWEEP_LAUNCH_RATIO = 2.0
+# 13d: a full-width point-to-line sweep: FULL_SWEEP_LANES lanes of
+# cli.sweep's grid over full_config's params on phase 4's survey; the
+# lanes held bit for bit against a lone slam_scan, each lane's pinned
+# (keyframes, loops, ATE m), the port's own result on an H100 80GB HBM3
+# (700 W); the launches a step counted on the first FULL_SWEEP_PREFIX
+# keyframes
+FULL_SWEEP_LANES = 8
+FULL_SWEEP_LONE_LANES = (0, 7)
+FULL_SWEEP_LONE_EXPECTED = {0: (73, 7, 0.1069), 7: (73, 6, 0.099)}
+FULL_SWEEP_PREFIX = 16
 TWO_ROBOT_EXPECTED = ([18, 19], [9, 4], 5, 4, 4, 0.0746)
 SHARDED_EXPECTED = (13, 4, 0.0496)
 # phase 13c replays a 60 s survey: on the card the 90 s default's loops
@@ -1686,6 +1703,97 @@ def run_sweep(dev) -> dict:
     return launches
 
 
+def full_sweep_config(seed: int = 0):
+    """Phase 13d's configuration: ``full_config`` with DR-basis aggregation
+    off (the JAX package's ``sweep_scan`` passes no basis; DVL-scale
+    estimation reads none and stays on)."""
+    import dataclasses
+
+    sim, dims, params, fcfg = full_config(seed)
+    return (sim, dataclasses.replace(dims, aggregate_with_dr_basis=False),
+            params, fcfg)
+
+
+def run_full_sweep(bag, dev) -> dict:
+    """Phase 13d: ``parallel.sweep_scan`` of FULL_SWEEP_LANES lanes of
+    ``cli.sweep``'s grid over ``full_sweep_config`` on phase 4's survey,
+    the frames built as ``scripts/sweep.py`` builds them (the keyframe gate
+    on the base params, one CFAR launch over the keyframe pings). Lanes
+    FULL_SWEEP_LONE_LANES bit for bit with a lone ``slam_scan``, within
+    SWEEP_ATE_BAND_M of its ATE and pinned; launches a keyframe step at all
+    lanes at most SWEEP_LAUNCH_RATIO times one lane's. Returns the CFAR
+    launches by kernel."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.cli.sweep import build_frames, lane_grid
+    from sonar_slam_torch.parallel import stack_params, sweep_scan
+    from sonar_slam_torch.parallel.sweep import lane_params
+    from sonar_slam_torch.pipeline import ate_rmse
+    from sonar_slam_torch.slam import slam_scan
+
+    t_phase = time.perf_counter()
+    _, dims, params_on, fcfg = full_sweep_config(0)
+    base = params_on(dev)
+    (frames, kf_idx), _, _, launches = _counted(
+        lambda: build_frames(bag, base, dims, fcfg, dev))
+    if launches["sum"] != 1 or sum(launches.values()) != 1:
+        raise RuntimeError(f"full sweep frames made CFAR launches {launches}, "
+                           "expected one of the sum kernel")
+    _, lanes = lane_grid(base, FULL_SWEEP_LANES)
+    stacked = stack_params(lanes)
+    (carry, _), wall, peak, _ = _counted(
+        lambda: sweep_scan(frames, stacked, dims))
+    nk = int(carry.num_kf[0])
+    poses = carry.poses.cpu().numpy()[:, :nk]
+    if not np.isfinite(poses).all():
+        raise RuntimeError("full sweep: poses not finite")
+    truth = bag.true_pose_at_ping[kf_idx][:nk]
+    ates = [ate_rmse(p, truth) for p in poses]
+    log(f"full point-to-line sweep, {FULL_SWEEP_LANES} lanes: wall_s "
+        f"{wall:.3f}, lane_seconds_per_lane {wall / FULL_SWEEP_LANES:.4f}, "
+        f"peak memory {peak:.1f} MiB; {nk} keyframes, loops per lane "
+        f"{carry.num_loops.tolist()}, ATE per lane m "
+        f"{[round(a, 4) for a in ates]}")
+    for i in FULL_SWEEP_LONE_LANES:
+        t0 = time.perf_counter()
+        c1, _ = slam_scan(frames, lane_params(stacked, i), dims)
+        torch.cuda.synchronize()
+        lone_s = time.perf_counter() - t0
+        lane = _lane(carry, i)
+        same = _bit_equal(lane, c1)
+        dpose = (lane.poses - c1.poses)[:nk].abs().max().item()
+        lone_ate = ate_rmse(c1.poses.cpu().numpy()[:nk], truth)
+        log(f"full sweep lane {i} against a lone slam_scan ({lone_s:.2f} s): "
+            f"bit for bit {same}, max |dpose| {dpose:.3e} m, loops "
+            f"{int(lane.num_loops)} and {c1.num_loops}, ATE {ates[i]:.4f} and "
+            f"{lone_ate:.4f} m")
+        if abs(ates[i] - lone_ate) > SWEEP_ATE_BAND_M:
+            raise RuntimeError(f"full sweep: lane {i}'s ATE is more than "
+                               f"{SWEEP_ATE_BAND_M} m from its lone scan's")
+        if not same:
+            raise RuntimeError(f"full sweep: lane {i} differs from a lone scan")
+        _check_pin(f"full sweep lane {i} (keyframes, loops, ATE m)",
+                   (c1.num_kf, c1.num_loops, round(lone_ate, 4)),
+                   FULL_SWEEP_LONE_EXPECTED[i])
+    K = frames.valid.shape[0]
+    prefix = frames._replace(valid=frames.valid & (
+        torch.arange(K, device=dev) < FULL_SWEEP_PREFIX))
+    steps = min(nk, FULL_SWEEP_PREFIX)
+    per_step = {}
+    for name, params in (("B=1", stack_params(lanes[:1])),
+                         (f"B={FULL_SWEEP_LANES}", stacked)):
+        per_step[name] = _launches(
+            lambda: sweep_scan(prefix, params, dims)) / steps
+    ratio = per_step[f"B={FULL_SWEEP_LANES}"] / per_step["B=1"]
+    log(f"full sweep: kernel launches a keyframe step over the first {steps} "
+        f"keyframes {json.dumps(per_step)}, ratio {ratio:.3f}; phase 13d "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if ratio > SWEEP_LAUNCH_RATIO:
+        raise RuntimeError(f"full sweep: {FULL_SWEEP_LANES} lanes launch "
+                           f"{ratio:.2f} times one lane's kernels a step")
+    return launches
+
+
 def run_two_robot(dev) -> dict:
     """Phase 13b: ``cli.two_robot_demo`` at its default 90 s. Returns its
     launches by kernel."""
@@ -2315,19 +2423,21 @@ def main() -> int:
         by_path["cli_full"] = run_cli_full(bag, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    del bag
     torch.cuda.empty_cache()
 
-    # 13) the parallel/ entry points: the sweep, the two-robot merge and the
-    # replay at keyframe capacity 1024
+    # 13) the parallel/ entry points: the sweep, the two-robot merge, the
+    # replay at keyframe capacity 1024 and the full-width point-to-line
+    # sweep on phase 4's survey
     t13 = time.perf_counter()
     by_path_os = {"os": entry_os["launches"]}
     for name, run in (("sweep", run_sweep), ("two_robot", run_two_robot),
-                      ("sharded_replay", run_sharded)):
+                      ("sharded_replay", run_sharded),
+                      ("full_sweep", lambda d: run_full_sweep(bag, d))):
         launches = run(dev)
         by_path[name] = launches["sum"]
         by_path_os[name] = launches["os_mask"] + launches["os_select"]
         torch.cuda.empty_cache()
+    del bag
     log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
 
     # 14) the accuracy CLIs: the production SOCA + refinement path and the

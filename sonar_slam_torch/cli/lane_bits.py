@@ -16,9 +16,16 @@ lone scan. Prints a log line for each step that parts and, as the last
 line, one JSON object: for each function, its calls and, for each checked
 lane, the calls that did not match and the largest difference.
 
+``--production-icp`` runs the sweep with bench.py's production ICP
+(point to line, ``cli.error_budget.icp_prod``); ``--max-points``,
+``--target-capacity`` and ``--nssm-starts`` replace those SlamDims fields
+(``max_points`` 130, or ``target_capacity`` 4096 with 30 starts, put ICP's
+sums outside ``lone_sums.lone_sum``'s modeled order).
+
 Usage:
   python -m sonar_slam_torch.cli.lane_bits [--lanes 64] [--check 0,7,63]
-      [--duration 90] [--cpu]
+      [--duration 90] [--production-icp] [--max-points N]
+      [--target-capacity N] [--nssm-starts N] [--cpu]
 """
 
 from __future__ import annotations
@@ -243,6 +250,14 @@ def _parser():
     ap.add_argument("--lanes", type=int, default=64)
     ap.add_argument("--check", default="0,7,63")
     ap.add_argument("--duration", type=float, default=90.0)
+    ap.add_argument("--production-icp", action="store_true",
+                    help="bench.py's production ICP (point to line)")
+    ap.add_argument("--max-points", type=int,
+                    help="SlamDims.max_points (points a keyframe)")
+    ap.add_argument("--target-capacity", type=int,
+                    help="SlamDims.target_capacity (points a target)")
+    ap.add_argument("--nssm-starts", type=int,
+                    help="SlamDims.nssm_cov_samples (loop-search ICP starts)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the default is the CUDA card)")
     return ap
@@ -258,11 +273,18 @@ def main(argv=None) -> dict:
     from ..parallel.sweep import lane_params
     from ..precision import pin_fp32
     from ..slam import core, lanes
+    from .error_budget import icp_prod
     from .sweep import sweep_inputs
 
     pin_fp32()
+    over = {k: v for k, v in (("max_points", args.max_points),
+                              ("target_capacity", args.target_capacity),
+                              ("nssm_cov_samples", args.nssm_starts))
+            if v is not None}
+    if args.production_icp:
+        over["icp"] = icp_prod()
     _, dims, _, stacked, frames, _ = sweep_inputs(device, args.lanes,
-                                                  args.duration)
+                                                  args.duration, **over)
     hooks = _Hooks(check)
     carry = lanes.slam_init_lanes(dims, args.lanes, device)
     steps = {}
@@ -284,8 +306,10 @@ def main(argv=None) -> dict:
                         f"{n} {v:.3g}" for n, v in d.items()), file=sys.stderr)
     finally:
         hooks.remove()
-    out = {"lanes": args.lanes, "check": check, "steps_parted": steps,
-           "calls": hooks.table}
+    out = {"lanes": args.lanes, "check": check,
+           "dims": {k: (v._asdict() if k == "icp" else v)
+                    for k, v in over.items()},
+           "steps_parted": steps, "calls": hooks.table}
     print(json.dumps(out))
     return out
 

@@ -137,10 +137,13 @@ def lane_grid(base, lanes: int):
     ]
 
 
-def sweep_inputs(device, lanes: int, duration: float = 90.0, file=None):
+def sweep_inputs(device, lanes: int, duration: float = 90.0, file=None,
+                 **dims_over):
     """What :func:`main` sweeps: (the bag, SlamDims, the lane grid's
     combinations, the stacked params, the shared KeyframeInput, the
-    keyframes' ping indices)."""
+    keyframes' ping indices). ``dims_over`` replaces SlamDims fields."""
+    import dataclasses
+
     from ..io.simulate import simulate_bag
     from ..parallel import stack_params
     from ..slam import FeatureConfig
@@ -152,6 +155,7 @@ def sweep_inputs(device, lanes: int, duration: float = 90.0, file=None):
     else:
         bag = simulate_bag(sim_config(duration))
     dims, base = small_dims_params(device)
+    dims = dataclasses.replace(dims, **dims_over)
     combos, lane_list = lane_grid(base, lanes)
     # shared preprocessing (config-independent up to the keyframe gate, which
     # uses the base config's gates so all lanes share the same keyframes —

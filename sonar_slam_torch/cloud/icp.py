@@ -14,7 +14,8 @@ pair of its own (:func:`icp_pairs`, the refinement fan-outs: every lane
 aligns a different source onto a different target). Lanes never interact,
 so a batch gives each lane the result it would get alone: within rounding,
 and on a card bit for bit with ``lone_rows`` (a sweep's lanes, whose sums
-then add in a lone call's order, ``lone_sums.py``).
+then add in a lone call's order and whose point-to-line solves are each
+lane's own calls, ``lone_sums.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import se2_compose, se2_transform_points, wrap_angle
-from ..lone_sums import lone_sum
+from ..lone_sums import each_lane, lone_operand, lone_sum
 from .knn import nn_match, sq32
 from .normals import estimate_normals
 
@@ -81,10 +82,23 @@ def _weighted_procrustes(src, dst, w, rsum=_plain_sum):
     return torch.stack([tx, ty, theta], dim=-1)
 
 
-def _weighted_p2l(src, dst, normals, w):
-    """One linearized point-to-line update per lane, with a ridge of
-    1e-5 * trace(A) anchoring directions the lines leave unobserved.
-    Returns (delta (G, 3), constraint weight (G,), A (G, 3, 3), mse (G,))."""
+def _p2l_solve(aw, a, r):
+    """The point-to-line normal equations of G lanes, A = aw^T a and rhs =
+    -aw^T r, solved with a ridge of 1e-5 * trace(A) anchoring directions
+    the lines leave unobserved: (delta (G, 3), A (G, 3, 3))."""
+    A = torch.matmul(aw.transpose(-1, -2), a)
+    rhs = -torch.matmul(aw.transpose(-1, -2), r[..., None])[..., 0]
+    ridge = 1e-5 * torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) + 1e-9
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    x, _ = torch.linalg.solve_ex(A + ridge[:, None, None] * eye, rhs)
+    return x, A
+
+
+def _weighted_p2l(src, dst, normals, w, rsum=_plain_sum, solve=_p2l_solve):
+    """One linearized point-to-line update per lane. Returns (delta (G, 3),
+    constraint weight (G,), A (G, 3, 3), mse (G,)). ``rsum`` takes the
+    lanes' sums and ``solve`` their normal equations (:func:`_p2l_solve`,
+    or each sweep lane's own call, :func:`_icp_lanes`)."""
     have_n = torch.sum(normals * normals, dim=-1) > 0.5
     wn = w * have_n.to(src.dtype)
     r = torch.sum(normals * (src - dst), dim=-1)
@@ -93,15 +107,11 @@ def _weighted_p2l(src, dst, normals, w):
         [normals[..., 0], normals[..., 1], torch.sum(normals * jp, dim=-1)],
         dim=-1,
     )  # (G, N, 3)
-    aw = a * wn[..., None]
-    A = torch.matmul(aw.transpose(-1, -2), a)
-    rhs = -torch.matmul(aw.transpose(-1, -2), r[..., None])[..., 0]
-    ridge = 1e-5 * torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) + 1e-9
-    eye = torch.eye(3, dtype=src.dtype, device=src.device)
-    x, _ = torch.linalg.solve_ex(A + ridge[:, None, None] * eye, rhs)
+    x, A = solve(a * wn[..., None], a, r)
     x = torch.cat([x[:, :2], torch.clamp(x[:, 2:], -0.5, 0.5)], dim=-1)
-    mse = torch.sum(wn * r * r, dim=-1) / torch.clamp(torch.sum(wn, dim=-1), min=1.0)
-    return x, torch.sum(wn, dim=-1), A, mse
+    n_con = rsum(wn, -1)
+    mse = rsum(wn * r * r, -1) / torch.clamp(n_con, min=1.0)
+    return x, n_con, A, mse
 
 
 def _p2p_info(moved, dst, w, rsum=_plain_sum):
@@ -140,6 +150,16 @@ def censi_covariance(info: torch.Tensor, mse: torch.Tensor, pose: torch.Tensor,
     return torch.matmul(torch.matmul(G, cov_delta), G.transpose(-1, -2))
 
 
+def _each_sweep_lane_p2l(rows, stepping, aw, a, r):
+    """:func:`_p2l_solve` of G = B * ``rows`` lanes as B sweep lanes' own
+    calls on ``rows`` lanes each, for the sweep lanes listed in
+    ``stepping`` (the others' results are zero)."""
+    x, A = each_lane(
+        lambda *t: _p2l_solve(*(lone_operand(u) for u in t)), stepping,
+        *(t.unflatten(0, (-1, rows)) for t in (aw, a, r)))
+    return x.flatten(0, 1), A.flatten(0, 1)
+
+
 def _trim_threshold(d2, valid, ratio):
     """Per-lane squared-distance cutoff keeping ``ratio`` of the valid matches."""
     n = d2.shape[-1]
@@ -156,8 +176,10 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
     """ICP over G lanes. Source and target are shared ([N, 2] / [M, 2]) or
     per lane ([G, N, 2] / [G, M, 2]); masks and weights follow their cloud.
     ``lone_rows`` says that the G lanes are a sweep's lanes of that many
-    each, whose point-to-point sums are added as one lane's lone call of
-    ``lone_rows`` adds them (``lone_sums.lone_sum``)."""
+    each, whose sums are added as one lane's lone call of ``lone_rows``
+    adds them (``lone_sums.lone_sum``) and whose point-to-line normal
+    equations are solved by a call of each sweep lane's own
+    (``lone_sums.each_lane``), for the sweep lanes still stepping."""
     dtype = source_points.dtype
     dev = source_points.device
     G = guesses.shape[0]
@@ -169,6 +191,8 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
         return table[lanes, idx] if per_lane else table[idx]
 
     rsum = _plain_sum if lone_rows is None else partial(lone_sum, rows=lone_rows)
+    each_sweep_lane = cfg.point_to_line and lone_rows is not None
+    solve = _p2l_solve
 
     if cfg.point_to_line:
         tgt_normals = estimate_normals(
@@ -186,7 +210,13 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
 
     for _ in range(cfg.max_iterations):
         active = (~done) & (iters < cfg.max_iterations)
-        if not bool(active.any()):
+        if each_sweep_lane:
+            stepping = torch.nonzero(
+                active.reshape(-1, lone_rows).any(1))[:, 0].tolist()  # host read
+            if not stepping:
+                break
+            solve = partial(_each_sweep_lane_p2l, lone_rows, stepping)
+        elif not bool(active.any()):
             break
         moved = se2_transform_points(source_points, pose)  # (G, N, 2)
         idx, d2 = nn_match(target_points, target_mask, moved, source_mask,
@@ -213,7 +243,7 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
             ws = ws * take(target_weights.to(dtype), safe_idx)
         if cfg.point_to_line:
             delta_l, n_con, info_l, mse_l = _weighted_p2l(
-                moved, matched, take(tgt_normals, safe_idx), ws)
+                moved, matched, take(tgt_normals, safe_idx), ws, rsum, solve)
             delta_p = _weighted_procrustes(moved, matched, ws, rsum)
             info_p, mse_p = _p2p_info(moved, matched, ws, rsum)
             use_l = n_con >= 3

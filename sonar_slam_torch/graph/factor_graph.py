@@ -25,6 +25,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..geometry import se2_between, se2_compose, se2_inverse, se2_logmap, se2_retract
+from ..lone_sums import each_lane
 
 
 class GraphConfig(NamedTuple):
@@ -59,11 +60,11 @@ def cholesky_nan(m: torch.Tensor, lanes=None) -> torch.Tensor:
     """Lower Cholesky factor, all-NaN where ``m`` is not positive definite
     (``jnp.linalg.cholesky`` returns NaN there and callers rely on it).
     With ``lanes``, of B lanes' matrices, one factorization a listed lane
-    (:func:`_each_lane`)."""
+    (:func:`each_lane`)."""
     if lanes is None:
         L, info = torch.linalg.cholesky_ex(m)
     else:  # each lane's factor kept column-major, as cuSOLVER returns one
-        Lt, info = _each_lane(_transposed_cholesky, lanes, m)
+        Lt, info = each_lane(_transposed_cholesky, lanes, m)
         L = Lt.mT
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(L, float("nan")), L)
@@ -218,25 +219,6 @@ def _products(A, r, J0, r0):
             torch.matmul(J0.T, r0))
 
 
-def _each_lane(fn, lanes, *args):
-    """``fn`` of each listed lane's operands (every arg with a leading lane
-    axis B), one call a lane, as the lane's lone call makes it: cuBLAS and
-    cuSOLVER pick their kernels, and so their roundings, by the batch, and
-    a batched call rounds a lane otherwise. Returns fn's outputs stacked
-    over the B lanes, zero in the lanes not listed."""
-    outs = [fn(*(a[i] for a in args)) for i in lanes]
-    B = args[0].shape[0]
-    if list(lanes) == list(range(B)):
-        return [torch.stack(parts) for parts in zip(*outs)]
-    idx = torch.as_tensor(lanes, device=args[0].device)
-    stacked = []
-    for parts in zip(*outs):
-        full = parts[0].new_zeros((B,) + parts[0].shape)
-        full[idx] = torch.stack(parts)
-        stacked.append(full)
-    return stacked
-
-
 def _assemble_normal_equations(state: GraphState, config: GraphConfig,
                                lanes=None, need_b: bool = True):
     """H (n, n) and b (n,) at the current estimates, n = 3K (+2 with scale
@@ -244,7 +226,7 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig,
     without ``need_b``. With ``lanes`` (a list of lane indices), ``state``
     holds B graphs (every field with a leading lane axis): H (B, n, n) and
     b (B, n), their linear systems batched and each listed lane's products
-    its own calls (:func:`_each_lane`; the other lanes' hold none)."""
+    its own calls (:func:`each_lane`; the other lanes' hold none)."""
     K = config.max_poses
     dev = state.poses.device
     if lanes is None:
@@ -261,10 +243,10 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig,
         # so that its products take the lone call's kernel
         J0 = J0.transpose(-1, -2).contiguous().transpose(-1, -2)
         if need_b:
-            H, b, JtJ, Jtr = _each_lane(_products, lanes, A, r, J0, r0)
+            H, b, JtJ, Jtr = each_lane(_products, lanes, A, r, J0, r0)
         else:
-            H, JtJ = _each_lane(lambda a, j: _products(a, None, j, None)[::2],
-                                lanes, A, J0)
+            H, JtJ = each_lane(lambda a, j: _products(a, None, j, None)[::2],
+                               lanes, A, J0)
             b = None
 
     if config.estimate_scale:
@@ -311,8 +293,8 @@ def _scaled_cho_solve(Lf, b, lanes=None):
     if lanes is None:
         x = torch.cholesky_solve(bb, L)
     else:
-        x = _each_lane(lambda u, f: (torch.cholesky_solve(u, f),), lanes,
-                       bb, L)[0]
+        x = each_lane(lambda u, f: (torch.cholesky_solve(u, f),), lanes,
+                      bb, L)[0]
     x = x / d[..., None]
     return x[..., 0] if vec else x
 
@@ -423,7 +405,7 @@ def optimize_batch(states: GraphState, config: GraphConfig, active=None,
     on, up to ``config.gn_iters`` sweeps. A graph where the (B,) mask
     ``active`` is False is not stepped. With ``lane_calls`` (a sweep's
     lanes) each stepping graph's products and factorizations are calls of
-    its own, as in its lone ``optimize`` (:func:`_each_lane`); one host
+    its own, as in its lone ``optimize`` (:func:`each_lane`); one host
     read a sweep either way."""
     B = states.poses.shape[0]
     dev = states.poses.device

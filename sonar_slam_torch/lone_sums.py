@@ -1,4 +1,4 @@
-"""Sums that round, on a CUDA card, as a lone call's ``torch.sum`` rounds.
+"""Sums and library calls that round, on a CUDA card, as a lone call's.
 
 A lane-batched caller reduces R = B * G rows where each lane's lone call
 reduced G. ATen's CUDA reduction shapes its thread block by the number of
@@ -15,10 +15,17 @@ call. :func:`lone_sum` adds each row in the order of a call with G rows:
   terms runs in the same order for any number of rows.
 
 That order is ATen's, not a promise of torch: ``tests/
-test_torch_lone_sums_cuda.py`` holds :func:`lone_sum` to ``torch.sum``
-bit for bit on the card at the shapes the sweep uses. On the CPU a row's
+test_torch_sweep_lanes_cuda.py`` holds :func:`lone_sum` to ``torch.sum``
+bit for bit on the card at the shapes the sweep uses. Where the lone call
+would vectorize a row with a tail, or split a row across thread blocks,
+the order is not modeled (:func:`modeled` decides from the shape) and each
+lane's rows are summed by a ``torch.sum`` of their own. On the CPU a row's
 order does not follow the number of rows, and :func:`lone_sum` is
 ``torch.sum``.
+
+cuBLAS and cuSOLVER pick their kernels, and so their roundings, by the
+batch too: :func:`each_lane` makes a library call once a lane, on operands
+laid out as the lane's lone call holds them (:func:`lone_operand`).
 """
 
 from __future__ import annotations
@@ -45,10 +52,11 @@ def _block(dim0: int, dim1: int, max_threads: int):
     return min(d0, max_threads // bh), bh
 
 
-def _split(values_per_thread: int, bh: int) -> bool:
-    """Whether the rows' terms are split across the block's warps."""
+def _split(values_per_thread: int, bh: int):
+    """Whether the rows' terms are split across the block's warps; None
+    where they are split across thread blocks (not modeled)."""
     if values_per_thread >= 256 * bh:
-        raise NotImplementedError("a reduction split across thread blocks")
+        return None
     return values_per_thread >= min(bh * 16, 256)
 
 
@@ -83,15 +91,48 @@ def _fold(v, dim: int, to: int):
     return v
 
 
-def _rows_sum(x, rows: int):
-    """Sum over the last dim of contiguous rows x (R, N), each as a call
-    on ``rows`` rows of N adds it."""
-    R, N = x.shape
+def _rows_plan(N: int, rows: int):
+    """How a call on ``rows`` rows of N terms adds a row: (vectorized,
+    block width, partial sums a row), or None where it is not modeled (a
+    vectorized row with a tail, a row split across thread blocks)."""
     vec = N >= VECTORIZE_FROM
     if vec and N % 4:
-        raise NotImplementedError("a vectorized row with a tail")
+        return None
     bw, bh = _block(N // 4 if vec else N, rows, _MAX_THREADS)
-    step = bw * bh if _split(-(-N // bw), bh) else bw
+    split = _split(-(-N // bw), bh)
+    if split is None:
+        return None
+    return vec, bw, bw * bh if split else bw
+
+
+def _points_plan(N: int, C: int, rows: int):
+    """How a call on ``rows`` rows of (N, C) adds a row's N terms: the
+    partial sums a thread keeps, or None where a row is split across thread
+    blocks (not modeled)."""
+    vec = 4 if C % 4 == 0 else 2 if C % 2 == 0 else 1
+    bw, bh = _block(rows * C // vec, N, _MAX_THREADS // vec)
+    split = _split(N, bh)
+    if split is None:
+        return None
+    return bh if split else 1
+
+
+def modeled(shape, dim: int, rows: int) -> bool:
+    """Whether :func:`lone_sum` adds a CUDA tensor of ``shape`` over ``dim``
+    in the modeled order (else each lane's rows take a ``torch.sum`` of
+    their own)."""
+    if len(shape) == 2 and dim in (-1, 1):
+        return _rows_plan(shape[1], rows) is not None
+    if len(shape) == 3 and dim in (-2, 1):
+        return _points_plan(shape[1], shape[2], rows) is not None
+    return False
+
+
+def _rows_sum(x, rows: int):
+    """Sum over the last dim of contiguous rows x (R, N), each as a call
+    on ``rows`` rows of N adds it (a shape :func:`modeled` covers)."""
+    R, N = x.shape
+    vec, bw, step = _rows_plan(N, rows)
     p = (_strided_partials(x.reshape(R, N // 4, 4), step, 4) if vec
          else _strided_partials(x, step, 1))  # (R, step)
     p = p.reshape(R, step // bw, bw)
@@ -101,26 +142,63 @@ def _rows_sum(x, rows: int):
 
 def _points_sum(x, rows: int):
     """Sum over dim 1 of contiguous x (R, N, C), each row as a call on
-    ``rows`` rows of (N, C) adds it: the C outputs of a row lie side by
-    side, so each thread sums terms for its own outputs."""
+    ``rows`` rows of (N, C) adds it (a shape :func:`modeled` covers): the C
+    outputs of a row lie side by side, so each thread sums terms for its
+    own outputs."""
     R, N, C = x.shape
-    vec = 4 if C % 4 == 0 else 2 if C % 2 == 0 else 1
-    bw, bh = _block(rows * C // vec, N, _MAX_THREADS // vec)
-    step = bh if _split(N, bh) else 1
-    p = _strided_partials(x, step, 1)  # (R, step, C)
+    p = _strided_partials(x, _points_plan(N, C, rows), 1)  # (R, step, C)
     return _fold(p, 1, 1)[:, 0]
+
+
+def lone_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data does not start on a 256-byte
+    boundary (the most alignment torch hands cuBLAS's heuristics, and less
+    than a fresh allocation's): a library call on a lane's slice then sees
+    the operand its lone call sees."""
+    return x if x.data_ptr() % 256 == 0 else x.clone()
+
+
+def each_lane(fn, lanes, *args):
+    """``fn`` of each listed lane's operands (every arg with a leading lane
+    axis B), one call a lane, as the lane's lone call makes it: cuBLAS and
+    cuSOLVER pick their kernels, and so their roundings, by the batch, and
+    a batched call rounds a lane otherwise. Returns fn's outputs stacked
+    over the B lanes, zero in the lanes not listed."""
+    outs = [fn(*(a[i] for a in args)) for i in lanes]
+    B = args[0].shape[0]
+    if list(lanes) == list(range(B)):
+        return [torch.stack(parts) for parts in zip(*outs)]
+    idx = torch.as_tensor(lanes, device=args[0].device)
+    stacked = []
+    for parts in zip(*outs):
+        full = parts[0].new_zeros((B,) + parts[0].shape)
+        full[idx] = torch.stack(parts)
+        stacked.append(full)
+    return stacked
+
+
+def _each_lane_sum(x, dim: int, rows: int):
+    """Each lane's own ``torch.sum`` over its ``rows`` rows of contiguous
+    x, on the operand its lone call holds."""
+    return torch.cat([torch.sum(lone_operand(part), dim=dim)
+                      for part in x.split(rows)])
 
 
 def lone_sum(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
     """``torch.sum(x, dim)`` of a lane-batched x whose leading axis holds
-    B lanes of ``rows`` rows each (x (B * rows, N), dim -1; or (B * rows,
-    N, C), dim -2), each row rounded as a call on one lane's ``rows`` rows
-    rounds it. On the CPU this is ``torch.sum``."""
+    B lanes of ``rows`` rows each (``dim`` not that axis), each row rounded
+    as a call on one lane's ``rows`` rows rounds it: in the modeled order
+    (x (B * rows, N), dim -1; or (B * rows, N, C), dim -2, where
+    :func:`modeled` holds), else by each lane's own ``torch.sum``. On the
+    CPU this is ``torch.sum``."""
     if x.device.type != "cuda":
         return torch.sum(x, dim=dim)
-    x = x.contiguous()
-    if x.ndim == 2 and dim in (-1, 1):
-        return _rows_sum(x, rows)
-    if x.ndim == 3 and dim in (-2, 1):
-        return _points_sum(x, rows)
-    raise NotImplementedError(f"lone_sum of a {x.ndim}-d tensor over {dim}")
+    return _card_sum(x.contiguous(), dim, rows)
+
+
+def _card_sum(x, dim: int, rows: int):
+    """:func:`lone_sum`'s card branch on contiguous x (on any device: the
+    CPU tests check what it adds)."""
+    if not modeled(x.shape, dim, rows):
+        return _each_lane_sum(x, dim, rows)
+    return _rows_sum(x, rows) if x.ndim == 2 else _points_sum(x, rows)

@@ -31,11 +31,20 @@ Bits. On a CUDA card a lane equals its lone scan bit for bit where every
 op rounds it as its lone call does. Elementwise ops do. The float sums,
 products and factorizations whose kernels follow the batch are made to:
 
-* ICP's point-to-point sums are added in a lone call's order
-  (``lone_sums.lone_sum``, through ``cloud.icp._icp_lanes``);
+* ICP's sums over a cloud (the point-to-point update and information,
+  the point-to-line constraint weight and mean squared residual) are
+  added in a lone call's order (``lone_sums.lone_sum``, through
+  ``cloud.icp._icp_lanes``; at shapes outside its model, by each lane's
+  own ``torch.sum``);
+* the point-to-line update's products A = aw^T a, aw^T r and its 3 x 3
+  solve are each lane's own cuBLAS and cuSOLVER calls on its starts
+  (``cloud.icp._p2l_solve`` through ``lone_sums.each_lane``), for the
+  lanes still stepping: a few launches a lane an ICP trip. The target
+  normals (sums over ``normal_k`` terms, within one warp) and the
+  pairwise distances (products over 2 terms) round alike in any batch;
 * the normal equations' products and the Cholesky factorizations and
   solves of the Gauss-Newton steps and marginals are each lane's own
-  cuBLAS and cuSOLVER calls (``graph.factor_graph._each_lane``), as are
+  cuBLAS and cuSOLVER calls (``lone_sums.each_lane``), as are
   the 3 x 3 Cholesky of a loop's or a scan match's covariance and the
   products of ``localize_covariance_lanes``: a few dozen launches a lane
   a keyframe step.

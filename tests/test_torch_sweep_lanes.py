@@ -8,18 +8,28 @@ lane advances through each keyframe step together.
   lane (the tolerance of tests/test_torch_slam.py), the same keyframe and
   loop counts. That stream's clouds are random, so no loop closes there
   (its ``nssm_cov_samples`` 4 is under the 5 converged starts a loop
-  needs); the same is done on ``_world_frames``.
+  needs); the same is done on ``_world_frames``, with point-to-point ICP
+  and with bench.py's production point-to-line ICP.
 * (b) Against the plain version ``sweep_scan_loop`` (``slam_scan`` of each
   lane alone), lane by lane: on ``_world_frames`` (a world of scatterers
   seen twice around a small loop) with ``nssm_cov_samples`` 8, lanes that
   also differ in every flag and integer field (one lane inserts loops
   under ``min_pcm`` 2, another never with 99) and in ``conf_power``, and a
-  ``max_loops`` of 3 that stops one lane's fourth loop only.
+  ``max_loops`` of 3 that stops one lane's fourth loop only; and the same
+  lanes with their ICP switched to point to line. There the multi-start
+  loop search is ill-conditioned in the reference algorithm itself:
+  under bench.py's production ICP lanes 4 and 6's lone scans lose a loop
+  when every keyframe's odometry moves by 1e-6 m, and under this ICP lane
+  6's finds an NSSM overlap of 8 or 9 points at keyframe 4
+  (``PYTHONPATH=.:tests python tests/test_torch_sweep_lanes.py`` prints
+  the probe). So lane 6 is held to its poses, keyframes and loops only,
+  and the production ICP to the JAX lanes (a); the card holds every lane
+  bit for bit (``tests/test_torch_sweep_lanes_cuda.py``).
 * (c) A lane's result is the same alone (B = 1) and in a batch of 4, at two
   lane indices; (d) identical lanes give equal results.
 
 On a CUDA card a lane is its lone scan bit for bit (``chip_smoke.py``
-phase 13a; ``tests/test_torch_lone_sums_cuda.py``). On the CPU these ops
+phase 13a; ``tests/test_torch_sweep_lanes_cuda.py``). On the CPU these ops
 round a lane in a batch otherwise than alone, by its position among the
 lanes, so (b), (c) and (d) hold poses within 1e-6 m / rad (every other
 float within 1e-4 of itself: covariances, whitening factors, loop
@@ -55,7 +65,7 @@ from sonar_slam_tpu.slam import SlamParams as JParams
 from sonar_slam_torch.convert import dims_from_reference, params_from_reference
 from sonar_slam_torch.parallel import stack_params, sweep_scan
 from sonar_slam_torch.parallel.sweep import _cast, sweep_scan_loop
-from sonar_slam_torch.slam import KeyframeInput
+from sonar_slam_torch.slam import KeyframeInput, slam_scan
 
 torch.set_num_threads(1)
 
@@ -68,6 +78,16 @@ JDIMS = JDims(
 # the same with enough converged starts for a loop, and the capacity cut
 # to 3 loops
 JDIMS_LOOPS = dataclasses.replace(JDIMS, nssm_cov_samples=8, max_loops=3)
+# the same with bench.py's production ICP (bench.py:209-211): point to line
+JDIMS_P2L = dataclasses.replace(
+    JDIMS_LOOPS, icp=JICP(max_iterations=12, min_diff_rot=1e-3,
+                          min_diff_trans=1e-2, point_to_line=True,
+                          outlier_max_dist=0.5))
+# and with its own ICP switched to point to line: (b)'s lanes under the
+# production ICP gain or lose loops when the odometry moves by 1e-6 m (the
+# probe below), so no comparison within rounding holds there
+JDIMS_LOOPS_P2L = dataclasses.replace(
+    JDIMS_LOOPS, icp=JDIMS_LOOPS.icp._replace(point_to_line=True))
 
 
 def _random_frames(n=6, seed=17):
@@ -173,11 +193,13 @@ _JAX_LANES = dict(point_noise=[0.3, 0.5, 0.6, 0.4],
                   ssm_max_rotation=np.radians([20.0, 30.0, 45.0, 60.0]))
 
 
-@pytest.mark.parametrize("inputs", ["test_parallel", "world"])
+@pytest.mark.parametrize("inputs", ["test_parallel", "world", "world_p2l"])
 def test_sweep_against_jax(inputs):
-    """(a): the batched sweep against the JAX package's vmap, lane by lane."""
-    jdims, f = ((JDIMS, _random_frames()) if inputs == "test_parallel" else
-                (JDIMS_LOOPS, _world_frames()))
+    """(a): the batched sweep against the JAX package's vmap, lane by lane
+    (``world_p2l``: with point-to-line ICP)."""
+    jdims, f = {"test_parallel": (JDIMS, _random_frames()),
+                "world": (JDIMS_LOOPS, _world_frames()),
+                "world_p2l": (JDIMS_P2L, _world_frames())}[inputs]
     base = _jax_params(jdims)
     jlanes = [base._replace(point_noise=jnp.float32(n),
                             icp_odom_sigmas=base.icp_odom_sigmas * jnp.float32(s),
@@ -192,17 +214,13 @@ def test_sweep_against_jax(inputs):
                                   np.asarray(jcarry.num_loops))
     np.testing.assert_allclose(carry.poses.numpy(), np.asarray(jcarry.poses),
                                atol=1e-4)
-    if inputs == "world":
+    if inputs != "test_parallel":
         assert int(carry.num_loops.sum()) > 0
 
 
-@pytest.fixture(scope="module")
-def loop_case():
-    """(b)'s lanes on ``_world_frames`` at ``JDIMS_LOOPS``: the batched sweep
-    and its plain version."""
-    dims = dims_from_reference(JDIMS_LOOPS)
-    p = _port(_jax_params(JDIMS_LOOPS))
-    lanes = _vary(
+def _loop_lanes(p):
+    """(b)'s eight lanes over ``p``."""
+    return _vary(
         p,
         use_best_start_tf=[None, None, None, True, None, None, None, None],
         use_censi_cov=[None, None, None, True, None, None, None, None],
@@ -216,6 +234,13 @@ def loop_case():
         icp_odom_sigmas=[None] * 7 + [p.icp_odom_sigmas * 1.5],
         conf_power=[None, None, 2.0, None, None, None, 0.25, None],
     )
+
+
+def _loop_case(jdims):
+    """(b)'s lanes on ``_world_frames`` at ``jdims``: the batched sweep and
+    its plain version."""
+    dims = dims_from_reference(jdims)
+    lanes = _loop_lanes(_port(_jax_params(jdims)))
     frames = _port_frames(_world_frames())
     stacked = stack_params(lanes)
     return dict(dims=dims, lanes=lanes, frames=frames, stacked=stacked,
@@ -223,17 +248,44 @@ def loop_case():
                 loop=sweep_scan_loop(frames, stacked, dims))
 
 
-def test_sweep_against_the_loop_lane_by_lane(loop_case):
+@pytest.fixture(scope="module")
+def loop_case():
+    return _loop_case(JDIMS_LOOPS)
+
+
+def _against_the_loop(case, looping: int, unstable=()):
     """(b): every leaf of every lane, carry and outputs (see the module
-    docstring for the tolerances)."""
-    (carry, outputs), (lcarry, loutputs) = loop_case["batched"], loop_case["loop"]
-    for i in range(len(loop_case["lanes"])):
+    docstring for the tolerances); lane ``looping`` closes loops, lane 1
+    (``min_pcm`` 99) none. A lane in ``unstable``, whose lone scan's
+    integer outputs move when the odometry moves by 1e-6 (the probe below),
+    keeps its poses, keyframes and loops."""
+    (carry, outputs), (lcarry, loutputs) = case["batched"], case["loop"]
+    for i in range(len(case["lanes"])):
+        if i in unstable:
+            _assert_lane_close(_lane(carry, i).poses, _lane(lcarry, i).poses,
+                               f"lane {i} carry.poses")
+            for name in ("num_kf", "num_loops"):
+                assert torch.equal(getattr(carry, name)[i],
+                                   getattr(lcarry, name)[i]), (i, name)
+            continue
         _assert_lane_close(_lane(carry, i), _lane(lcarry, i), f"lane {i} carry")
         _assert_lane_close(_lane(outputs, i), _lane(loutputs, i),
                            f"lane {i} outputs")
     loops = carry.num_loops.tolist()
-    assert loops[0] > 0 and loops[1] == 0  # min_pcm 2 against 99
-    assert bool(outputs.loop_added[0].any()) and not bool(outputs.loop_added[1].any())
+    assert loops[looping] > 0 and loops[1] == 0
+    assert bool(outputs.loop_added[looping].any())
+    assert not bool(outputs.loop_added[1].any())
+
+
+def test_sweep_against_the_loop_lane_by_lane(loop_case):
+    _against_the_loop(loop_case, 0)  # min_pcm 2 against 99
+
+
+def test_point_to_line_sweep_against_the_loop_lane_by_lane():
+    """(b) with the point-to-line ICP: lane 4 (fused odometry, robust SSM)
+    closes loops; lane 6's lone scan finds an NSSM overlap of 8 or 9 points
+    at keyframe 4 as the odometry moves by 1e-6 (the probe below)."""
+    _against_the_loop(_loop_case(JDIMS_LOOPS_P2L), 4, unstable=(6,))
 
 
 def test_capacity_gate_in_one_lane(loop_case):
@@ -273,3 +325,35 @@ def test_identical_lanes_equal(loop_case):
     for i in (1, 2):
         _assert_lane_close(_lane(carry, i), _lane(carry, 0))
         _assert_lane_close(_lane(outputs, i), _lane(outputs, 0))
+
+
+def _conditioning_probe():
+    """Each of (b)'s lanes scanned alone with every keyframe's odometry
+    but the first moved by 0, +1e-6, -1e-6 and +2e-6 (m in x and y, rad in
+    yaw): its loops and NSSM overlaps under each ICP."""
+    moves = (0.0, 1e-6, -1e-6, 2e-6)
+    for name, jdims in (("default", JDIMS_LOOPS),
+                        ("point_to_line", JDIMS_LOOPS_P2L),
+                        ("production point_to_line", JDIMS_P2L)):
+        dims = dims_from_reference(jdims)
+        lanes = _loop_lanes(_port(_jax_params(jdims)))
+        f = _world_frames()
+        rows = []
+        for lane in lanes:
+            row = []
+            for m in moves:
+                g = dict(f, dr_pose3=f["dr_pose3"].copy())
+                g["dr_pose3"][1:, [0, 1, 5]] += np.float32(m)
+                carry, out = slam_scan(_port_frames(g), lane, dims)
+                row.append((int(carry.num_loops), out.nssm_overlap.tolist()))
+            rows.append(row)
+        print(f"{name} ICP: each lane's (loops, NSSM overlaps) with the "
+              f"odometry moved by {moves} m or rad:")
+        for i, row in enumerate(rows):
+            print(f"  lane {i}: {row}")
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=.:tests python tests/test_torch_sweep_lanes.py
+    jax.config.update("jax_platforms", "cpu")
+    _conditioning_probe()
