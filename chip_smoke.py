@@ -2,8 +2,13 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, in order; any failure raises and
-the script exits non-zero without printing the result line:
+Run from the root of a checkout. Phases 1-3 run first, then phase 10,
+which times a kernel call; then phases 13 and 14 each run in a process of
+their own (``python3 chip_smoke.py phase-13`` and ``phase-14``: they read
+nothing of the other phases, phase 13 simulates phase 4's survey anew;
+their logs are relayed at the end) beside phases 4-9, 11-12 and 15, in
+order, in this one. Any failure raises and the script exits non-zero
+without printing the result line:
 
 1. device: a CUDA card is required (there is no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit``;
@@ -105,8 +110,17 @@ the script exits non-zero without printing the result line:
    finite poses; lanes 0 and 7 bit for bit with a lone ``slam_scan`` and
    pinned; launches a keyframe step at 8 lanes at most twice one lane's,
    over the first 16 keyframes; wall time, per-lane seconds and peak
-   memory logged); see ``run_sweep``, ``run_two_robot``, ``run_sharded``
-   and ``run_full_sweep``;
+   memory logged); (e) the robot axis at full width: robot A on phase 4's
+   survey, robot B on the same SimConfig with seed 1 at phase pi, under
+   (d)'s configuration, as lanes of one batched
+   ``parallel.multi_robot_scan`` (one CFAR launch a robot for the frames;
+   finite poses; each robot lane bit for bit with its lone ``slam_scan``
+   and pinned; launches a keyframe step at two robots at most 1.5x one
+   robot's over the first 16 keyframes; the batched 8 x 8 proposal search
+   bit for bit with its loop; PCM and the merge pinned; ``wall_s`` of the
+   batched scan and of the loop of lone scans, and peak memory, logged);
+   see ``run_sweep``, ``run_two_robot``, ``run_sharded``,
+   ``run_full_sweep`` and ``run_full_robots``;
 14. the accuracy CLIs, each run in process through its ``main`` with the
    launch counters reset just before, each result pinned exactly: (a)
    ``cli.multi_seed --full --seeds 1``, bench.py's production SOCA +
@@ -246,6 +260,18 @@ FULL_SWEEP_LONE_LANES = (0, 7)
 FULL_SWEEP_LONE_EXPECTED = {0: (73, 7, 0.1069), 7: (73, 6, 0.099)}
 FULL_SWEEP_PREFIX = 16
 TWO_ROBOT_EXPECTED = ([18, 19], [9, 4], 5, 4, 4, 0.0746)
+# 13e: the robot axis at full width: robot A on phase 4's survey, robot B
+# on the same SimConfig with seed 1 at phase pi, under full_sweep_config's
+# dims and params, as lanes of one batched multi_robot_scan; each robot's
+# (keyframes, loops, ATE m) and the merge's (proposals, PCM accepts,
+# clique, merged ATE m), the port's own results on an H100 80GB HBM3
+# (700 W); the launches a step counted on the first FULL_ROBOTS_PREFIX
+# keyframes of each robot, at two robots at most ROBOT_LAUNCH_RATIO times
+# those at one
+FULL_ROBOTS_EXPECTED = {0: (73, 8, 0.0978), 1: (71, 5, 0.1859)}
+FULL_ROBOTS_MERGE_EXPECTED = (2, 2, 2, 0.3011)
+FULL_ROBOTS_PREFIX = 16
+ROBOT_LAUNCH_RATIO = 1.5
 SHARDED_EXPECTED = (13, 4, 0.0496)
 # phase 13c replays a 60 s survey: on the card the 90 s default's loops
 # are ill-conditioned in the capacity (K 1024 closes 9 loops, K 128 eight;
@@ -1794,6 +1820,121 @@ def run_full_sweep(bag, dev) -> dict:
     return launches
 
 
+def run_full_robots(bag, dev) -> dict:
+    """Phase 13e: the robot axis at full width. Robot A takes phase 4's
+    survey, robot B the same SimConfig with seed 1 at phase pi (as
+    ``cli.two_robot_demo`` offsets its second robot), each robot's frames
+    built as the demo builds them (one sum-kernel launch a robot), under
+    ``full_sweep_config``'s dims and params. ``multi_robot_scan`` runs both
+    as lanes of one batched scan: finite poses, each robot lane bit for bit
+    with its lone ``slam_scan`` (the loop's) and pinned; launches a step at
+    two robots at most ROBOT_LAUNCH_RATIO times one robot's over the first
+    FULL_ROBOTS_PREFIX keyframes; the batched proposal search at the
+    demo's 8 x 8 candidates and 128 Sobol samples bit for bit with its
+    loop; then PCM and the merge, pinned. Logs ``wall_s`` of the batched
+    scan and of the loop, peak MiB and the phase's seconds. Returns the
+    CFAR launches by kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sonar_slam_torch.cli.sweep import build_frames
+    from sonar_slam_torch.cli.two_robot_demo import (candidates,
+                                                     dr_start_pose,
+                                                     merge_surveys,
+                                                     proposal_search)
+    from sonar_slam_torch.io.simulate import simulate_bag
+    from sonar_slam_torch.parallel.multi_robot import (
+        multi_robot_scan, propose_interrobot_loops,
+        propose_interrobot_loops_loop)
+    from sonar_slam_torch.pipeline import ate_rmse
+    from sonar_slam_torch.slam import KeyframeInput, slam_scan
+
+    t_phase = time.perf_counter()
+    sim, dims, params_on, fcfg = full_sweep_config(0)
+    params = params_on(dev)
+    t0 = time.perf_counter()
+    bags = [bag, simulate_bag(dataclasses.replace(sim, seed=1, phase=np.pi))]
+    sim_s = time.perf_counter() - t0
+    built, _, _, launches = _counted(
+        lambda: [build_frames(b, params, dims, fcfg, dev) for b in bags])
+    if launches["sum"] != 2 or sum(launches.values()) != 2:
+        raise RuntimeError(f"full robots' frames made CFAR launches {launches}, "
+                           "expected two of the sum kernel")
+    frames = KeyframeInput(*(None if f[0] is None else torch.stack(f)
+                             for f in zip(*(b[0] for b in built))))
+    (carries, outputs), wall, peak, _ = _counted(
+        lambda: multi_robot_scan(frames, params, dims))
+    nk = carries.num_kf.tolist()
+    truths = [bags[r].true_pose_at_ping[built[r][1]][:nk[r]] for r in range(2)]
+    poses = [carries.poses[r, :nk[r]].cpu().numpy() for r in range(2)]
+    if not all(np.isfinite(p).all() for p in poses):
+        raise RuntimeError("full robots: poses not finite")
+    ates = [ate_rmse(poses[r], truths[r]) for r in range(2)]
+    log(f"full robot axis, 2 robots batched: wall_s {wall:.3f}, peak memory "
+        f"{peak:.1f} MiB; keyframes {nk}, loops {carries.num_loops.tolist()}, "
+        f"ATE m {[round(a, 4) for a in ates]}; robot B simulated in "
+        f"{sim_s:.1f} s")
+    loop_wall = 0.0
+    for r in range(2):
+        lone_in = KeyframeInput(*(None if x is None else x[r] for x in frames))
+        (c1, o1), lone_s, _, _ = _counted(lambda: slam_scan(lone_in, params,
+                                                            dims))
+        loop_wall += lone_s
+        same = (_bit_equal(_lane(carries, r), c1)
+                and _bit_equal(_lane(outputs, r), o1))
+        log(f"full robot {r} against a lone slam_scan ({lone_s:.2f} s): bit "
+            f"for bit {same}, keyframes {nk[r]} and {c1.num_kf}, loops "
+            f"{int(carries.num_loops[r])} and {c1.num_loops}")
+        if not same:
+            raise RuntimeError(f"full robots: robot {r} differs from its lone "
+                               "scan")
+        _check_pin(f"full robot {r} (keyframes, loops, ATE m)",
+                   (c1.num_kf, c1.num_loops, round(ates[r], 4)),
+                   FULL_ROBOTS_EXPECTED[r])
+    log(f"full robot axis: wall_s batched {wall:.3f}, loop of lone scans "
+        f"{loop_wall:.3f}, ratio {wall / loop_wall:.3f}")
+
+    K = frames.valid.shape[1]
+    prefix = frames._replace(valid=frames.valid & (
+        torch.arange(K, device=dev) < FULL_ROBOTS_PREFIX))
+    steps = min(min(nk), FULL_ROBOTS_PREFIX)
+    one = KeyframeInput(*(None if x is None else x[:1] for x in prefix))
+    per_step = {"B=1": _launches(lambda: multi_robot_scan(one, params, dims))
+                / steps,
+                "B=2": _launches(lambda: multi_robot_scan(prefix, params, dims))
+                / steps}
+    ratio = per_step["B=2"] / per_step["B=1"]
+    log(f"full robot axis: kernel launches a keyframe step over the first "
+        f"{steps} keyframes {json.dumps(per_step)}, ratio {ratio:.3f}")
+    if ratio > ROBOT_LAUNCH_RATIO:
+        raise RuntimeError(f"full robots: two robots launch {ratio:.2f} times "
+                           "one robot's kernels a step")
+
+    starts = [dr_start_pose(b, dev) for b in bags]
+    cand = [candidates(carries, r, starts[r], dev) for r in range(2)]
+    search = proposal_search(dev)
+    batched, t_batched, _, _ = _counted(
+        lambda: propose_interrobot_loops(cand[0], cand[1], **search))
+    loop, t_loop, _, _ = _counted(
+        lambda: propose_interrobot_loops_loop(cand[0], cand[1], **search))
+    same = all(_bit_equal(x, y) for x, y in zip(batched, loop))
+    log(f"full robot proposals, 8 x 8 candidates, 128 Sobol samples: batched "
+        f"{t_batched:.3f} s, loop {t_loop:.3f} s, bit for bit {same}, "
+        f"{int(batched[1].sum())} pass")
+    if not same:
+        raise RuntimeError("full robots: the batched proposals differ from "
+                           "the loop's")
+    run = merge_surveys(bags, built, carries, dev)
+    if not np.isfinite(run.merged_poses).all():
+        raise RuntimeError("full robots: merged poses not finite")
+    _check_pin("full robot merge (proposals, PCM accepts, clique, merged ATE "
+               "m)", (run.proposals, run.accepted, run.clique,
+                      round(run.ate_joint_m, 4)), FULL_ROBOTS_MERGE_EXPECTED)
+    log(f"phase 13e {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def run_two_robot(dev) -> dict:
     """Phase 13b: ``cli.two_robot_demo`` at its default 90 s. Returns its
     launches by kernel."""
@@ -2314,11 +2455,8 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "sonar_slam_torch")):
         raise RuntimeError("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, HERE)
-    import numpy as np
-
     from sonar_slam_torch.io.simulate import simulate_bag
     from sonar_slam_torch.kernels import cfar_cuda
-    from sonar_slam_torch.pipeline import ate_heading_deg, ate_rmse, replay
 
     # 1) device
     dev = torch.device("cuda", 0)
@@ -2354,6 +2492,52 @@ def main() -> int:
     entry_os = check_os_kernel(stacks)
     del stacks
     torch.cuda.empty_cache()
+
+    # 10) bench.py's dual-sonar lane, before any other process shares the
+    # card: it times its vertical call
+    by_path = {"dual": run_dual_lane(dev, entry)}
+
+    # 13-14) the parallel/ entry points and the accuracy CLIs, each in a
+    # process of its own beside phases 4-9, 11-12 and 15 (they read nothing
+    # of the other phases)
+    workers = [PhaseWorker(phase) for phase in ("13", "14")]
+    try:
+        kalman, lz4_rates, node_api = run_main_phases(
+            bag, dev, dims, params_on, fcfg, entry, entry_os, by_path)
+        del bag
+        done = [w.result() for w in workers]
+    finally:
+        for w in workers:
+            w.stop()
+    by_path_os = {"os": entry_os["launches"]}
+    for sums, os_launches in done:
+        by_path.update(sums)
+        by_path_os.update(os_launches)
+    entry["launches_by_path"] = by_path
+    entry_os["launches_by_path"] = by_path_os
+
+    log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "
+        f"(from the build)")
+    log(json.dumps({"kalman_scan": kalman}))
+    log(json.dumps({"lz4_decoder": lz4_rates}))
+    log(json.dumps({"node_api": node_api}))
+    log(json.dumps({"kernels": [entry, entry_os]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_main_phases(bag, dev, dims, params_on, fcfg, entry, entry_os,
+                    by_path):
+    """Phases 4-9, 11-12 and 15, in the main process beside phases 13 and
+    14's: records the main path's launches into the kernels' entries and
+    each path's into ``by_path``. Returns (the Kalman scan's numbers, the
+    LZ4 decoder's rates, phase 15's numbers)."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.pipeline import ate_heading_deg, ate_rmse, replay
 
     # 4) the SOCA slice: full-config replay with refinement off
     params = params_on(dev)
@@ -2405,14 +2589,11 @@ def main() -> int:
     check_small_refine(dev)
 
     # 8-9) the FOG-gyro and Kalman front ends on phase 4's survey
-    by_path = {"soca": entry["launches"]}
+    by_path["soca"] = entry["launches"]
     for frontend in ("dr_gyro", "kalman"):
         by_path[frontend] = run_frontend_path(bag, dev, frontend)
     kalman = time_kalman_scan(bag, dev)
     torch.cuda.empty_cache()
-
-    # 10) bench.py's dual-sonar lane
-    by_path["dual"] = run_dual_lane(dev, entry)
 
     # 11-12) the command-line path: a bag through convert_bag and the
     # replay CLI, then the CLI on phase 4's survey
@@ -2425,24 +2606,44 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # 13) the parallel/ entry points: the sweep, the two-robot merge, the
-    # replay at keyframe capacity 1024 and the full-width point-to-line
-    # sweep on phase 4's survey
-    t13 = time.perf_counter()
-    by_path_os = {"os": entry_os["launches"]}
+    # 15) the node API: dead reckoning one tick a call, the Smoother, the
+    # padded SLAM scan, keyed downsampling and the density filter
+    t15 = time.perf_counter()
+    node_api = {"dead_reckoning_step": run_dr_node(node, params, dev),
+                "smoother_max_abs_diff": run_smoother(dev)}
+    run_padded_scan(*small)
+    node_api["clouds"] = run_cloud_api(clouds, dev)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    return kalman, lz4_rates, node_api
+
+
+def run_parallel_entry_points(bag, dev) -> tuple[dict, dict]:
+    """Phase 13: the sweep, the two-robot merge, the replay at keyframe
+    capacity 1024, the full-width point-to-line sweep and the full-width
+    robot axis on phase 4's survey. Returns (sum-kernel launches, OS
+    launches) by path."""
+    import torch
+
+    by_path, by_path_os = {}, {}
     for name, run in (("sweep", run_sweep), ("two_robot", run_two_robot),
                       ("sharded_replay", run_sharded),
-                      ("full_sweep", lambda d: run_full_sweep(bag, d))):
+                      ("full_sweep", lambda d: run_full_sweep(bag, d)),
+                      ("full_robots", lambda d: run_full_robots(bag, d))):
         launches = run(dev)
         by_path[name] = launches["sum"]
         by_path_os[name] = launches["os_mask"] + launches["os_select"]
         torch.cuda.empty_cache()
-    del bag
-    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    return by_path, by_path_os
 
-    # 14) the accuracy CLIs: the production SOCA + refinement path and the
-    # y-scale lane at full width, then the small harnesses
-    t14 = time.perf_counter()
+
+def run_accuracy_clis(dev) -> tuple[dict, dict]:
+    """Phase 14: the production SOCA + refinement path and the y-scale lane
+    at full width, then the small harnesses, each with the launch counters
+    reset just before. Returns (sum-kernel launches, OS launches) by
+    path."""
+    import torch
+
+    by_path, by_path_os = {}, {}
     for name, run in (("multi_seed", run_multi_seed), ("yscale_lane", run_yscale),
                       ("error_budget", run_error_budget),
                       ("accuracy_sweep", run_accuracy_sweep)):
@@ -2462,30 +2663,78 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     by_path["run_repeats"] = launches["sum"]
     by_path_os["run_repeats"] = launches["os_mask"] + launches["os_select"]
-    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    return by_path, by_path_os
 
-    # 15) the node API: dead reckoning one tick a call, the Smoother, the
-    # padded SLAM scan, keyed downsampling and the density filter
-    t15 = time.perf_counter()
-    node_api = {"dead_reckoning_step": run_dr_node(node, params, dev),
-                "smoother_max_abs_diff": run_smoother(dev)}
-    run_padded_scan(*small)
-    node_api["clouds"] = run_cloud_api(clouds, dev)
-    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
-    entry["launches_by_path"] = by_path
-    entry_os["launches_by_path"] = by_path_os
 
-    log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "
-        f"(from the build)")
-    log(json.dumps({"kalman_scan": kalman}))
-    log(json.dumps({"lz4_decoder": lz4_rates}))
-    log(json.dumps({"node_api": node_api}))
-    log(json.dumps({"kernels": [entry, entry_os]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+PHASE_RESULT = "launches by path: "
+
+
+class PhaseWorker:
+    """``python3 chip_smoke.py phase-<phase>`` (13 or 14) in a process of
+    its own (the kernels already built), its output kept in temporary files
+    until :meth:`result`, which relays it and returns the phase's launches
+    by path, or raises if the process failed. :meth:`stop` ends the process
+    if it is still running."""
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self.t0 = time.perf_counter()
+        self.out = tempfile.TemporaryFile(mode="w+")
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), f"phase-{phase}"],
+            stdout=self.out, stderr=self.err, cwd=HERE)
+
+    def result(self) -> tuple[dict, dict]:
+        rc = self.proc.wait()
+        log(f"phase {self.phase}'s log (its process collected "
+            f"{time.perf_counter() - self.t0:.1f} s after it started):")
+        self.out.seek(0)
+        self.err.seek(0)
+        lines = self.out.read().splitlines()
+        err = self.err.read()
+        sys.stderr.write(err)
+        done = [ln for ln in lines if ln.startswith(PHASE_RESULT)]
+        for ln in lines:
+            if not ln.startswith(PHASE_RESULT):
+                log(ln)
+        if rc != 0 or len(done) != 1:
+            raise RuntimeError(f"phase {self.phase}'s process exited {rc}: "
+                               f"{err[-3000:]}")
+        res = json.loads(done[0][len(PHASE_RESULT):])
+        return res["sum"], res["os"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+
+def phase_main(phase: str) -> int:
+    """Phase 13 or 14 alone, on the card, in the process that ``main``
+    starts: prints the phase's launches by path as its last line."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    if phase == "13":
+        from sonar_slam_torch.io.simulate import simulate_bag
+
+        by_path = run_parallel_entry_points(
+            simulate_bag(full_config(seed=0)[0]), dev)
+    else:
+        by_path = run_accuracy_clis(dev)
+    log(f"phase {phase} took {time.perf_counter() - t0:.1f} s in a process "
+        "of its own")
+    print(PHASE_RESULT + json.dumps({"sum": by_path[0], "os": by_path[1]}),
+          flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(run_survey_bag() if sys.argv[1:] == ["survey-bag"] else main())
+    arg = " ".join(sys.argv[1:])
+    sys.exit(run_survey_bag() if arg == "survey-bag" else
+             phase_main(arg[6:]) if arg in ("phase-13", "phase-14") else main())

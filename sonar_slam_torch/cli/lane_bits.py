@@ -1,8 +1,10 @@
-"""Where the lane-batched sweep parts from its lone scans, bit by bit.
+"""Where the lane-batched scan parts from its lone scans, bit by bit.
 
 Runs ``cli.sweep``'s survey under its lane grid through the lane-batched
-scan (``slam/lanes.py``) and, for a few checked lanes, compares on the
-same inputs:
+scan (``slam/lanes.py``), or with ``--robots R`` the two-robot demo's
+basin surveyed by R robots (``cli.two_robot_demo.robot_inputs``: each
+robot its own keyframe stream, a lane of ``parallel.multi_robot_scan``'s
+batched scan), and, for a few checked lanes, compares on the same inputs:
 
 * each keyframe step: the lone ``slam.core.keyframe_step`` run from the
   checked lane's own batched carry, against that lane of the batched step
@@ -14,7 +16,9 @@ same inputs:
 A lane whose every call matches its lone call ends bit for bit with its
 lone scan. Prints a log line for each step that parts and, as the last
 line, one JSON object: for each function, its calls and, for each checked
-lane, the calls that did not match and the largest difference.
+lane, the calls that did not match and the largest difference. Steps are
+keyframe slots for the sweep; for robots, step j is each robot's j-th
+keyframe (a robot whose stream has ended steps no more).
 
 ``--production-icp`` runs the sweep with bench.py's production ICP
 (point to line, ``cli.error_budget.icp_prod``); ``--max-points``,
@@ -26,6 +30,7 @@ Usage:
   python -m sonar_slam_torch.cli.lane_bits [--lanes 64] [--check 0,7,63]
       [--duration 90] [--production-icp] [--max-points N]
       [--target-capacity N] [--nssm-starts N] [--cpu]
+  python -m sonar_slam_torch.cli.lane_bits --robots 2 --check 0,1 [...]
 """
 
 from __future__ import annotations
@@ -65,9 +70,13 @@ def _diff(a, b) -> float:
 
 def lane_carry(carry, i: int):
     """Lane ``i`` of a lane-batched SlamCarry as the lone carry it stands
-    for (the host counts back as ints)."""
+    for (the host counts back as ints; per-lane frame fields sliced)."""
     from ..graph.factor_graph import GraphState
 
+    if carry.points.ndim == 4:
+        carry = carry._replace(**{f: getattr(carry, f)[i] for f in (
+            "times", "dr_poses3", "dr_poses", "points", "pmasks", "pconf",
+            "dr_basis")})
     return carry._replace(
         poses=carry.poses[i], covs=carry.covs[i],
         graph=GraphState(*(x[i] for x in carry.graph)),
@@ -197,13 +206,16 @@ def _adapters():
 
 class _Hooks:
     """Wraps each lane-batched function so that every call is also made
-    lone for the checked lanes and compared."""
+    lone for the checked lanes and compared. ``at`` maps each checked lane
+    stepping to its position in the batch (the lanes stepping may be
+    fewer than all: robots whose streams have ended)."""
 
     def __init__(self, check):
         self.check = check
         self.table = {}
         self.step = -1
         self.saved = []
+        self.at = {i: i for i in check}
 
     def install(self):
         for mod, name, lone, pick in _adapters():
@@ -223,7 +235,7 @@ class _Hooks:
         def wrapped(*a, **k):
             res = fn(*a, **k)
             row["calls"] += 1
-            for i in self.check:
+            for lane, i in self.at.items():
                 ref = lone(i, a, k)
                 if ref is None:
                     continue
@@ -233,8 +245,8 @@ class _Hooks:
                 if len(_leaves(ref)) != len(got):
                     d = float("inf")
                 if d:
-                    row[str(i)][0] += 1
-                    row[str(i)][1] = max(row[str(i)][1], d)
+                    row[str(lane)][0] += 1
+                    row[str(lane)][1] = max(row[str(lane)][1], d)
                     if row["first_step"] is None:
                         row["first_step"] = self.step
             return res
@@ -248,6 +260,9 @@ def _parser():
         description="Compare the lane-batched sweep with lone scans, step by "
                     "step and call by call.")
     ap.add_argument("--lanes", type=int, default=64)
+    ap.add_argument("--robots", type=int, default=0,
+                    help="compare R robot lanes (the two-robot demo's basin, "
+                         "each robot's own stream) instead of the sweep's")
     ap.add_argument("--check", default="0,7,63")
     ap.add_argument("--duration", type=float, default=90.0)
     ap.add_argument("--production-icp", action="store_true",
@@ -263,18 +278,44 @@ def _parser():
     return ap
 
 
+def _inputs(args, device, over):
+    """(SlamDims, stacked params, the scan's KeyframeInput, lanes): the
+    sweep's shared stream under its grid, or R robots' streams under the
+    demo's params."""
+    from ..parallel import stack_params
+    from .sweep import sweep_inputs
+
+    if args.robots:
+        from .two_robot_demo import robot_inputs
+
+        _, dims, params, _, frames = robot_inputs(device, args.duration,
+                                                  args.robots, **over)
+        return dims, stack_params([params] * args.robots), frames, args.robots
+    _, dims, _, stacked, frames, _ = sweep_inputs(device, args.lanes,
+                                                  args.duration, **over)
+    return dims, stacked, frames, args.lanes
+
+
+def _lone_frame(frame, pos: int):
+    """The frame of the lane at position ``pos`` among the lanes stepping
+    (the step's frame where the lanes share it)."""
+    if frame.points.ndim == 2:
+        return frame
+    return frame._replace(**{f: None if getattr(frame, f) is None
+                             else getattr(frame, f)[pos]
+                             for f in ("time", "dr_pose3", "points", "pmask",
+                                       "conf")})
+
+
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     device = device_from_args(args.cpu, "lane_bits")
     check = [int(x) for x in args.check.split(",")]
 
-    import numpy as np
-
     from ..parallel.sweep import lane_params
     from ..precision import pin_fp32
     from ..slam import core, lanes
     from .error_budget import icp_prod
-    from .sweep import sweep_inputs
 
     pin_fp32()
     over = {k: v for k, v in (("max_points", args.max_points),
@@ -283,30 +324,30 @@ def main(argv=None) -> dict:
             if v is not None}
     if args.production_icp:
         over["icp"] = icp_prod()
-    _, dims, _, stacked, frames, _ = sweep_inputs(device, args.lanes,
-                                                  args.duration, **over)
+    dims, stacked, frames, B = _inputs(args, device, over)
     hooks = _Hooks(check)
-    carry = lanes.slam_init_lanes(dims, args.lanes, device)
+    carry = lanes.slam_init_lanes(dims, B, device,
+                                  per_lane_frames=frames.points.ndim == 4)
     steps = {}
     hooks.install()
     try:
-        valid = np.asarray(torch.as_tensor(frames.valid).cpu())
-        for k in np.nonzero(valid)[0]:
-            hooks.step = int(k)
-            frame = core._frame(frames, int(k), True)
-            lone = {i: core.keyframe_step(lane_carry(carry, i), frame,
-                                          lane_params(stacked, i), dims)[0]
-                    for i in check}
-            carry, _ = lanes.keyframe_step_lanes(carry, frame, stacked, dims)
-            for i in check:
-                d = _carry_diffs(lone[i], lane_carry(carry, i))
+        for j, (active, at, frame) in enumerate(lanes.scan_steps(frames, B)):
+            hooks.step = j if args.robots else at[0]
+            hooks.at = {b: active.index(b) for b in check if b in active}
+            lone = {b: core.keyframe_step(
+                lane_carry(carry, b), _lone_frame(frame, p),
+                lane_params(stacked, b), dims)[0]
+                for b, p in hooks.at.items()}
+            carry, _ = lanes.step_lanes(carry, frame, stacked, dims, active)
+            for b in lone:
+                d = _carry_diffs(lone[b], lane_carry(carry, b))
                 if d:
-                    steps.setdefault(str(i), {})[int(k)] = d
-                    print(f"step {k} lane {i}: " + ", ".join(
+                    steps.setdefault(str(b), {})[hooks.step] = d
+                    print(f"step {hooks.step} lane {b}: " + ", ".join(
                         f"{n} {v:.3g}" for n, v in d.items()), file=sys.stderr)
     finally:
         hooks.remove()
-    out = {"lanes": args.lanes, "check": check,
+    out = {"lanes": B, "robots": args.robots, "check": check,
            "dims": {k: (v._asdict() if k == "icp" else v)
                     for k, v in over.items()},
            "steps_parted": steps, "calls": hooks.table}

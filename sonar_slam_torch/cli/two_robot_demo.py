@@ -4,11 +4,13 @@ Counterpart of ``scripts/two_robot_demo.py``:
 
 1. two robots survey the same basin on opposite phases of the loop (shared
    world, independent sensor noise),
-2. each runs the complete SLAM scan independently (``multi_robot_scan``;
-   one robot after the other on one device, where the JAX package gives
-   each its own mesh lane),
+2. each runs the complete SLAM scan independently (``multi_robot_scan``:
+   each robot a lane of one lane-batched scan on one device, where the
+   JAX package gives each its own mesh lane; the line that reports it ends
+   with the scan's ``wall_s``, host seconds ended by a device sync),
 3. candidate keyframe summaries are exchanged (the ISAM2Update analog),
-4. all-pairs NSSM-style registration proposes inter-robot transforms,
+4. all-pairs NSSM-style registration proposes inter-robot transforms (the
+   64 pairs' Sobol searches in one batched search, their ICPs in one batch),
 5. PCM vets the proposal set (pairwise-consistency max clique),
 6. accepted proposals become between-factors in one merged pose graph,
    re-optimized jointly; both trajectories are verified against ground truth.
@@ -25,13 +27,14 @@ Usage: python -m sonar_slam_torch.cli.two_robot_demo [--duration 90] [--plot out
 from __future__ import annotations
 
 import argparse
+import time
 from dataclasses import replace
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import device_from_args
+from . import device_from_args, sync
 
 
 class TwoRobotRun(NamedTuple):
@@ -44,6 +47,7 @@ class TwoRobotRun(NamedTuple):
     clique: int  # PCM clique size
     ate_joint_m: float  # merged, after one joint SE(2) alignment
     merged_poses: np.ndarray  # (nk_a + nk_b, 3)
+    scan_wall_s: float  # the batched two-robot scan, ended by a device sync
 
 
 def dr_start_pose(bag, device):
@@ -51,6 +55,34 @@ def dr_start_pose(bag, device):
     the shared-world-frame assumption of the reference's rov_id design."""
     return torch.as_tensor(bag.true_pose_at_ping[0], dtype=torch.float32,
                            device=device)
+
+
+def robot_inputs(device, duration: float, robots: int = 2, **dims_over):
+    """The demo's surveys and configuration: robot r surveys the basin with
+    sensor seed r + 1 at loop phase 2 pi r / ``robots`` (the demo's two: 0
+    and pi), under the scripts' small dims (``dims_over`` replaces SlamDims
+    fields) and the demo's params. Returns (bags, dims, params, each
+    robot's (KeyframeInput, keyframe pings), the inputs stacked on the
+    robot axis)."""
+    from ..io.simulate import simulate_bag
+    from ..slam import FeatureConfig, KeyframeInput
+    from .sweep import build_frames, sim_config, small_dims_params
+
+    def vec(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    sim0 = sim_config(duration, world_seed=42)
+    bags = [simulate_bag(replace(sim0, seed=r + 1, phase=2 * np.pi * r / robots))
+            for r in range(robots)]
+    dims, params = small_dims_params(
+        device, fuse_odometry=True, odom_sigmas=vec([0.05, 0.05, 0.01]),
+        icp_odom_sigmas=vec([0.3, 0.3, 0.03]))
+    dims = replace(dims, **dims_over)
+    fc = FeatureConfig(max_points=dims.max_points)
+    built = [build_frames(b, params, dims, fc, device) for b in bags]
+    stacked = KeyframeInput(*(None if f[0] is None else torch.stack(f)
+                              for f in zip(*(b[0] for b in built))))
+    return bags, dims, params, built, stacked
 
 
 def main(argv=None) -> TwoRobotRun:
@@ -66,21 +98,78 @@ def main(argv=None) -> TwoRobotRun:
     args = ap.parse_args(argv)
     device = device_from_args(args.cpu, "two-robot demo")
 
+    from ..parallel.multi_robot import multi_robot_scan
+
+    bags, dims, params, built, frames2 = robot_inputs(device, args.duration)
+
+    # 1-2) per-robot SLAM, both robots as lanes of one batched scan
+    sync(device)
+    t0 = time.perf_counter()
+    carries, _ = multi_robot_scan(frames2, params, dims)
+    sync(device)
+    wall = time.perf_counter() - t0
+    nk = [int(carries.num_kf[r]) for r in range(2)]
+    loops = [int(carries.num_loops[r]) for r in range(2)]
+    print(f"robot surveys done: keyframes={nk}, loops={loops}, "
+          f"wall_s {wall:.3f}")
+    return merge_surveys(bags, built, carries, device, args.min_pcm,
+                         args.plot)._replace(scan_wall_s=wall)
+
+
+P_CAND = 8  # candidate keyframes a robot offers
+
+
+def candidates(carries, r: int, start, device):
+    """Robot r's P_CAND candidate keyframe summaries, evenly spaced over its
+    keyframes, posed in the shared deployment frame (``start``: its DR
+    frame's pose there)."""
+    from ..geometry import se2_compose
+    from ..parallel.multi_robot import KeyframeSummary
+
+    nk = int(carries.num_kf[r])
+    kt = torch.as_tensor(np.linspace(0, nk - 1, P_CAND).astype(int),
+                         device=device)
+    return KeyframeSummary(
+        robot_id=torch.full((P_CAND,), r, dtype=torch.int64, device=device),
+        key=kt,
+        pose=se2_compose(start, carries.poses[r][kt]),
+        cov=carries.covs[r][kt],
+        points=carries.points[r][kt],
+        pmask=carries.pmasks[r][kt],
+    )
+
+
+def proposal_search(device) -> dict:
+    """The all-pairs registration's search and gates (keyword arguments of
+    ``propose_interrobot_loops`` after the two summaries): 128 Sobol
+    samples in a +-2 m, +-0.4 rad box, point-to-line ICP with a tight
+    correspondence gate (the round-2 error budget showed point-to-point at
+    loose radius drags partial-overlap registrations), 60 points of
+    overlap."""
     from ..cloud import ICPConfig
+    from ..slam.scan_matching import sobol_unit_samples
+
+    return dict(
+        sobol_samples=torch.as_tensor(sobol_unit_samples(128), device=device),
+        bounds=torch.tensor([2.0, 2.0, 0.4], dtype=torch.float32, device=device),
+        point_noise=0.5, min_overlap=60,
+        icp_config=ICPConfig(min_diff_rot=1e-3, min_diff_trans=1e-2,
+                             point_to_line=True, outlier_max_dist=0.75))
+
+
+def merge_surveys(bags, built, carries, device, min_pcm: int = 2,
+                  plot: str = "") -> TwoRobotRun:
+    """Steps 3-6 on two robots' scanned carries (stacked on the robot axis):
+    exchange, proposals, PCM, the merged graph and its scores. Returns the
+    TwoRobotRun (``scan_wall_s`` 0.0: the caller timed the scan)."""
     from ..geometry import se2_between, se2_compose
     from ..graph.factor_graph import GraphConfig, optimize, sigmas_to_sqrt_info
-    from ..io.simulate import simulate_bag
     from ..parallel.multi_robot import (
-        KeyframeSummary,
         merge_pose_graphs,
-        multi_robot_scan,
         propose_interrobot_loops,
         vet_interrobot_loops,
     )
     from ..pipeline import ate_rmse
-    from ..slam import FeatureConfig, KeyframeInput
-    from ..slam.scan_matching import sobol_unit_samples
-    from .sweep import build_frames, sim_config, small_dims_params
 
     def vec(v):
         return torch.tensor(v, dtype=torch.float32, device=device)
@@ -88,57 +177,19 @@ def main(argv=None) -> TwoRobotRun:
     def host(x):
         return x.detach().cpu().numpy()
 
-    sim0 = sim_config(args.duration, world_seed=42)
-    bags = [
-        simulate_bag(replace(sim0, seed=1, phase=0.0)),
-        simulate_bag(replace(sim0, seed=2, phase=np.pi)),
-    ]
-    dims, params = small_dims_params(
-        device, fuse_odometry=True, odom_sigmas=vec([0.05, 0.05, 0.01]),
-        icp_odom_sigmas=vec([0.3, 0.3, 0.03]))
-    fc = FeatureConfig(max_points=dims.max_points)
-
-    built = [build_frames(b, params, dims, fc, device) for b in bags]
-    frames2 = KeyframeInput(*(torch.stack([a, b]) if a is not None else None
-                              for a, b in zip(built[0][0], built[1][0])))
-
-    # 1-2) per-robot SLAM, one robot after the other
-    carries, _ = multi_robot_scan(frames2, params, dims)
     nk = [int(carries.num_kf[r]) for r in range(2)]
     loops = [int(carries.num_loops[r]) for r in range(2)]
-    print(f"robot surveys done: keyframes={nk}, loops={loops}")
 
     # each robot's poses are in its OWN DR frame (anchored at its start);
     # re-anchor to the shared deployment frame for exchange guesses
     starts = [dr_start_pose(b, device) for b in bags]
 
     # 3) exchange candidate keyframe summaries
-    P_CAND = 8
+    cand = [candidates(carries, r, starts[r], device) for r in range(2)]
 
-    def candidates(r):
-        ks = np.linspace(0, nk[r] - 1, P_CAND).astype(int)
-        kt = torch.as_tensor(ks, device=device)
-        return KeyframeSummary(
-            robot_id=torch.full((P_CAND,), r, dtype=torch.int64, device=device),
-            key=kt,
-            pose=se2_compose(starts[r], carries.poses[r][kt]),
-            cov=carries.covs[r][kt],
-            points=carries.points[r][kt],
-            pmask=carries.pmasks[r][kt],
-        )
-
-    cand = [candidates(0), candidates(1)]
-
-    # 4) all-pairs registration (A candidates x B candidates); point-to-line
-    # with a tight correspondence gate — the round-2 error budget showed
-    # point-to-point at loose radius drags partial-overlap registrations
-    icp_cfg = ICPConfig(min_diff_rot=1e-3, min_diff_trans=1e-2,
-                        point_to_line=True, outlier_max_dist=0.75)
-    sobol = torch.as_tensor(sobol_unit_samples(128), device=device)
-    bounds = vec([2.0, 2.0, 0.4])
-    tfs, ok, ov = propose_interrobot_loops(
-        cand[0], cand[1], sobol, bounds, point_noise=0.5, min_overlap=60,
-        icp_config=icp_cfg)
+    # 4) all-pairs registration (A candidates x B candidates)
+    tfs, ok, ov = propose_interrobot_loops(cand[0], cand[1],
+                                           **proposal_search(device))
     tfs, ok, ov = host(tfs), host(ok), host(ov)
     n_prop = int(ok.sum())
     print(f"proposals: {n_prop}/{ok.size} pairs pass ICP+overlap")
@@ -170,7 +221,7 @@ def main(argv=None) -> TwoRobotRun:
     accept, size = vet_interrobot_loops(
         vec(a_poses), vec(b_poses), vec(qtf), vec(qcov),
         torch.ones(len(flat), dtype=torch.bool, device=device),
-        min_pcm=args.min_pcm)
+        min_pcm=min_pcm)
     accept = host(accept)
     print(f"PCM: accepted {int(np.sum(accept))}/{len(flat)} proposals "
           f"(clique size {int(size)})")
@@ -258,7 +309,7 @@ def main(argv=None) -> TwoRobotRun:
           f"post-merge {rel_post*100:.2f} cm; at the {len(linked)} linked "
           f"pairs {np.sqrt(np.mean(np.square(linked)))*100:.2f} cm")
 
-    if args.plot:
+    if plot:
         import matplotlib
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
@@ -278,12 +329,13 @@ def main(argv=None) -> TwoRobotRun:
                 ax.plot([pa[0], pb[0]], [pa[1], pb[1]], "r-", lw=0.8)
         ax.legend()
         ax.set_aspect("equal")
-        fig.savefig(args.plot, dpi=120)
-        print(f"plot: {args.plot}")
+        fig.savefig(plot, dpi=120)
+        print(f"plot: {plot}")
 
     return TwoRobotRun(keyframes=nk, loops=loops, proposals=n_prop,
                        accepted=int(np.sum(accept)), clique=int(size),
-                       ate_joint_m=ate_joint, merged_poses=poses)
+                       ate_joint_m=ate_joint, merged_poses=poses,
+                       scan_wall_s=0.0)
 
 
 if __name__ == "__main__":

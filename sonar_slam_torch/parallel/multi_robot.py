@@ -5,10 +5,16 @@ Counterpart of ``sonar_slam_tpu/parallel/multi_robot.py``. The reference
 reserves hooks for multi-robot SLAM (the dormant ``ISAM2Update`` message,
 ``rov_id`` frame prefixes); the JAX package maps each robot to a mesh lane
 and exchanges compact keyframe summaries (pose, covariance, downsampled
-cloud) with ``all_gather``. One card has no mesh, so the robots run one
-after another on one device and the "exchange" is the stacked summary
-itself. Inter-robot loop closures then run like NSSM: Sobol global
-initialization and batched ICP, vetted by PCM, merged into one graph.
+cloud) with ``all_gather``. One card has no mesh: here every robot is a
+lane of one lane-batched scan on one device (``slam/lanes.py``, each lane
+with its own keyframe stream, as the JAX package's lanes are), and the
+"exchange" is the stacked summary itself. Inter-robot loop closures then
+run like NSSM: the P·Q pairs' Sobol global initializations in one batched
+search and their ICPs in one batch, vetted by PCM, merged into one graph.
+Each robot lane, and each pair's search, equals its lone call (bit for bit
+on a CUDA card, within rounding on the CPU); ``multi_robot_scan_loop`` and
+``propose_interrobot_loops_loop`` are the plain versions, one robot and one
+pair after another.
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ from ..graph.factor_graph import (add_between, cov_to_sqrt_info, graph_init,
                                   set_pose_estimate)
 from ..graph.pcm import pcm_select
 from ..slam.core import KeyframeInput, slam_scan
-from ..slam.scan_matching import global_initialize
-from .sweep import stack_lanes
+from ..slam.lanes import slam_scan_lanes
+from ..slam.scan_matching import global_initialize, global_initialize_lanes
+from .sweep import stack_lanes, stack_params
 
 
 class KeyframeSummary(NamedTuple):
@@ -73,13 +80,22 @@ def merge_interrobot_factors(own: KeyframeSummary, gathered: KeyframeSummary,
 
 
 def multi_robot_scan(frames_stacked: KeyframeInput, params, dims):
-    """Run each robot's full SLAM scan, one robot after another.
+    """Run every robot's full SLAM scan as a lane of one lane-batched scan.
 
-    ``frames_stacked``: a KeyframeInput with a leading robot axis. Each
-    robot runs the complete SSM/NSSM/PCM scan independently (robots don't
-    communicate during the survey; exchange happens afterwards). Returns
-    (carries, outputs) stacked on the robot axis, as ``sweep_scan`` stacks
-    its lanes."""
+    ``frames_stacked``: a KeyframeInput with a leading robot axis R, each
+    robot's own keyframe stream (its own keyframe count and valid slots).
+    Each robot runs the complete SSM/NSSM/PCM scan independently under the
+    shared ``params`` (robots don't communicate during the survey; exchange
+    happens afterwards). Returns (carries, outputs) stacked on the robot
+    axis, as ``sweep_scan`` stacks its lanes: robot r's equal to
+    ``slam_scan`` of its own stream."""
+    R = frames_stacked.points.shape[0]
+    return slam_scan_lanes(frames_stacked, stack_params([params] * R), dims)
+
+
+def multi_robot_scan_loop(frames_stacked: KeyframeInput, params, dims):
+    """The plain version of :func:`multi_robot_scan`: each robot's
+    ``slam_scan``, one robot after another, stacked by ``stack_lanes``."""
     R = frames_stacked.points.shape[0]
     runs = [slam_scan(KeyframeInput(*(None if x is None else x[r]
                                       for x in frames_stacked)), params, dims)
@@ -98,9 +114,32 @@ def propose_interrobot_loops(own: KeyframeSummary, other: KeyframeSummary,
     ``own`` holds robot A's P candidate keyframes, ``other`` robot B's Q.
     For every (a, b) pair, an NSSM-style global init (a Sobol search of
     ``sobol_samples`` (S, 3) within +-``bounds`` (3,) around the
-    shared-world-frame relative pose, one guess) then ICP, all P·Q
-    registrations in one batch. Returns per-pair (tf (P, Q, 3): measurement
-    a-local -> b, ok (P, Q), overlap (P, Q))."""
+    shared-world-frame relative pose, one guess) then ICP: the P·Q Sobol
+    searches in one lane-batched search, the registrations in one batch.
+    Pair (a, b) equals its lone ``global_initialize`` and ICP. Returns
+    per-pair (tf (P, Q, 3): measurement a-local -> b, ok (P, Q), overlap (P,
+    Q))."""
+    P, Q = own.pose.shape[0], other.pose.shape[0]
+    PQ = P * Q
+    clouds = _pair_clouds(own, other)
+    tgt_pose = own.pose.repeat_interleave(Q, dim=0)
+    gi = global_initialize_lanes(
+        *clouds, other.pose.repeat(P, 1), tgt_pose, bounds.expand(PQ, -1),
+        sobol_samples.expand(PQ, -1, -1),
+        torch.full((PQ,), point_noise, dtype=torch.float32,
+                   device=own.pose.device), 1)
+    guesses = se2_between(tgt_pose, gi.guess_poses[:, 0])
+    return _register_pairs(clouds, guesses, (P, Q), point_noise, min_overlap,
+                           icp_config)
+
+
+def propose_interrobot_loops_loop(own: KeyframeSummary, other: KeyframeSummary,
+                                  sobol_samples: torch.Tensor,
+                                  bounds: torch.Tensor, point_noise: float = 0.5,
+                                  min_overlap: int = 30,
+                                  icp_config: ICPConfig = ICPConfig()):
+    """The plain version of :func:`propose_interrobot_loops`: each pair's
+    ``global_initialize`` in a host loop, then the same ICP batch."""
     P, Q = own.pose.shape[0], other.pose.shape[0]
     guesses = []
     for a in range(P):
@@ -110,11 +149,26 @@ def propose_interrobot_loops(own: KeyframeSummary, other: KeyframeSummary,
                 other.pose[b], own.pose[a], bounds, sobol_samples,
                 point_noise, 1)
             guesses.append(gi.guesses_vs(own.pose[a])[0])
-    src = other.points.repeat(P, 1, 1)
-    smask = other.pmask.repeat(P, 1)
-    tgt = own.points.repeat_interleave(Q, dim=0)
-    tmask = own.pmask.repeat_interleave(Q, dim=0)
-    res = icp_pairs(src, smask, tgt, tmask, torch.stack(guesses), icp_config)
+    return _register_pairs(_pair_clouds(own, other), torch.stack(guesses),
+                           (P, Q), point_noise, min_overlap, icp_config)
+
+
+def _pair_clouds(own: KeyframeSummary, other: KeyframeSummary):
+    """The P·Q pairs' clouds, pair a * Q + b registering ``other``'s b (the
+    source) onto ``own``'s a: (source, mask, target, mask)."""
+    P, Q = own.pose.shape[0], other.pose.shape[0]
+    return (other.points.repeat(P, 1, 1), other.pmask.repeat(P, 1),
+            own.points.repeat_interleave(Q, dim=0),
+            own.pmask.repeat_interleave(Q, dim=0))
+
+
+def _register_pairs(clouds, guesses, shape, point_noise, min_overlap,
+                    icp_config):
+    """The P·Q pairs' ICPs in one batch and their overlap gate: (tf, ok,
+    overlap), each shaped ``shape`` (P, Q)."""
+    P, Q = shape
+    src, smask, tgt, tmask = clouds
+    res = icp_pairs(src, smask, tgt, tmask, guesses, icp_config)
     moved = se2_transform_points(src, res.pose)
     ov = count_overlap(moved, smask, tgt, tmask, point_noise)
     ok = res.ok & (ov >= min_overlap)

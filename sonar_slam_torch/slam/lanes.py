@@ -1,14 +1,25 @@
-"""The lane-batched SLAM scan: one keyframe stream under B ``SlamParams``
-lanes at once, each lane equal to ``slam_scan`` of its own parameters.
+"""The lane-batched SLAM scan: B lanes at once, each lane equal to
+``slam_scan`` of its own keyframe stream and ``SlamParams``.
 
-Counterpart of the JAX package's ``vmap`` of ``slam_scan``
-(``sonar_slam_tpu/parallel/sweep.py``): every lane advances through each
-keyframe step together. The lanes share the frames, so the keyframe key,
-``num_kf`` and which slots are valid stay host values; everything that
-depends on the parameters (poses, covariances, the graph, the PCM queue,
-the loop slots, statuses and outputs) carries a leading lane axis B, and
-every ``SlamParams`` field is a (B, ...) tensor (``parallel.stack_params``):
-flags and integers are per-lane masks and values, never host branches.
+Counterpart of the JAX package's ``vmap`` of ``slam_scan`` (the sweep,
+``sonar_slam_tpu/parallel/sweep.py``) and of its robot axis
+(``multi_robot_scan``'s ``shard_map``, ``sonar_slam_tpu/parallel/
+multi_robot.py``): every lane advances through each keyframe step together.
+Everything that depends on the parameters (poses, covariances, the graph,
+the PCM queue, the loop slots, statuses and outputs) carries a leading lane
+axis B, and every ``SlamParams`` field is a (B, ...) tensor
+(``parallel.stack_params``): flags and integers are per-lane masks and
+values, never host branches.
+
+The keyframe stream is either shared, KeyframeInput leaves (K, ...) (a
+sweep), or each lane's own, leaves (B, K, ...) (robots). A shared stream
+keeps the carry's frame fields (``times``, ``dr_poses3``, ``dr_poses``,
+``points``, ``pmasks``, ``pconf``, ``dr_basis``) without a lane axis. Per
+lane, they carry one, and the lanes' valid slots may differ: step j takes
+each lane's j-th valid slot, as its lone scan does, and runs only the lanes
+that have one (a lane whose stream has ended keeps its carry bit for bit,
+as an invalid slot leaves a lone carry). Either way the step's key, and so
+``num_kf``, is one host value for the lanes stepping.
 
 Where ``keyframe_step`` branches on the host, this module computes and
 selects per lane, as ``vmap`` turns ``lax.cond`` into a select:
@@ -48,6 +59,9 @@ products and factorizations whose kernels follow the batch are made to:
   the 3 x 3 Cholesky of a loop's or a scan match's covariance and the
   products of ``localize_covariance_lanes``: a few dozen launches a lane
   a keyframe step.
+
+So no lane's bits depend on the lanes beside it, and the batch may shrink
+as per-lane streams end.
 
 On the CPU, MKL's ``mm`` and ATen's vectorized ``atan2`` round a lane in a
 batch otherwise than alone, and a lane keeps to its lone scan within
@@ -142,14 +156,17 @@ def conf_weight_lanes(conf: torch.Tensor, params: SlamParams) -> torch.Tensor:
     return torch.pow(base, params.conf_power[:, None])
 
 
-def slam_init_lanes(dims: SlamDims, lanes: int, device) -> SlamCarry:
+def slam_init_lanes(dims: SlamDims, lanes: int, device,
+                    per_lane_frames: bool = False) -> SlamCarry:
     """``core.slam_init`` for B lanes: the per-lane fields with a leading
     lane axis; ``num_kf`` a host int; ``q_head`` and ``num_loops`` (B,)
     tensors; the frame fields (``times``, ``dr_poses3``, ``dr_poses``,
-    ``points``, ``pmasks``, ``pconf``, ``dr_basis``) shared."""
+    ``points``, ``pmasks``, ``pconf``, ``dr_basis``) shared, or with a lane
+    axis too where ``per_lane_frames``."""
     K, N, Q, L = (dims.max_keyframes, dims.max_points, dims.pcm_queue_slots,
                   dims.max_loops)
     B = lanes
+    F = (B,) if per_lane_frames else ()
 
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -158,9 +175,10 @@ def slam_init_lanes(dims: SlamDims, lanes: int, device) -> SlamCarry:
     g = graph_init(dims.graph_config(), device)
     graph = GraphState(*(x.expand((B,) + x.shape).clone() for x in g))
     return SlamCarry(
-        times=z(K), dr_poses3=z(K, 6), dr_poses=z(K, 3), poses=z(B, K, 3),
-        covs=(eye * 1e-4).repeat(B, K, 1, 1), points=z(K, N, 2),
-        pmasks=z(K, N, dtype=torch.bool), num_kf=0, graph=graph,
+        times=z(*F, K), dr_poses3=z(*F, K, 6), dr_poses=z(*F, K, 3),
+        poses=z(B, K, 3), covs=(eye * 1e-4).repeat(B, K, 1, 1),
+        points=z(*F, K, N, 2), pmasks=z(*F, K, N, dtype=torch.bool), num_kf=0,
+        graph=graph,
         ssm_slot=torch.full((B, K), -1, dtype=torch.int64, device=device),
         q_source=z(B, Q, dtype=torch.int64), q_target=z(B, Q, dtype=torch.int64),
         q_tf=z(B, Q, 3), q_cov=eye.repeat(B, Q, 1, 1),
@@ -168,24 +186,43 @@ def slam_init_lanes(dims: SlamDims, lanes: int, device) -> SlamCarry:
         q_head=z(B, dtype=torch.int64), loops_i=z(B, L, dtype=torch.int64),
         loops_j=z(B, L, dtype=torch.int64), loops_tf=z(B, L, 3),
         loops_slot=z(B, L, dtype=torch.int64), num_loops=z(B, dtype=torch.int64),
-        dr_basis=z(K, 2, 2), pconf=z(K, N),
+        dr_basis=z(*F, K, 2, 2), pconf=z(*F, K, N),
     )
+
+
+def _per_lane(carry: SlamCarry) -> bool:
+    """Whether the carry's frame fields have a lane axis."""
+    return carry.points.ndim == 4
+
+
+def _keyed(carry: SlamCarry, field, keys):
+    """Rows ``keys`` of a frame field, the same keys for every lane (a host
+    int or a (W,) tensor): field[keys], or each lane's (B, ...)."""
+    return field[:, keys] if _per_lane(carry) else field[keys]
+
+
+def _lane_keyed(carry: SlamCarry, field, keys):
+    """Row keys[b] of lane b of a frame field, keys (B,): (B, ...)."""
+    if _per_lane(carry):
+        return field[torch.arange(keys.shape[0], device=keys.device), keys]
+    return field[keys]
 
 
 def scaled_dr_between_lanes(carry: SlamCarry, ref_key, keys, s: torch.Tensor):
     """``core.scaled_dr_between`` with per-lane DVL scales s (B, 2), from
-    ``ref_key`` (a host int, or (B,) keys) to the shared keys (W,): (B, W,
-    3)."""
+    ``ref_key`` (a host int, or (B,) keys) to keys (W,) the same for every
+    lane: (B, W, 3)."""
     B = s.shape[0]
     ref = torch.as_tensor(ref_key, device=s.device).expand(B)
-    d = carry.dr_basis[keys][None] - carry.dr_basis[ref][:, None]  # (B, W, 2, 2)
+    d = (_keyed(carry, carry.dr_basis, keys).expand((B,) + (-1,) * 3)
+         - _lane_keyed(carry, carry.dr_basis, ref)[:, None])  # (B, W, 2, 2)
     tw = (s[:, 0, None, None] * d[..., 0, :]
           + s[:, 1, None, None] * d[..., 1, :])
-    th = carry.dr_poses[ref, 2][:, None]
+    th = _lane_keyed(carry, carry.dr_poses, ref)[:, 2, None]
     c, sn = torch.cos(th), torch.sin(th)
     tb = torch.stack([c * tw[..., 0] + sn * tw[..., 1],
                       -sn * tw[..., 0] + c * tw[..., 1]], dim=-1)
-    dth = wrap_angle(carry.dr_poses[keys, 2] - th)
+    dth = wrap_angle(_keyed(carry, carry.dr_poses, keys)[..., 2] - th)
     return torch.cat([tb, dth[..., None]], dim=-1)
 
 
@@ -193,18 +230,19 @@ def _aggregate_window_lanes(carry: SlamCarry, ref_pose, first_key: int,
                             window: int, spec: VoxelGridSpec, capacity: int,
                             ref_key: int, use_dr_relatives: bool = False,
                             use_basis: bool = False):
-    """``core._aggregate_window`` for B lanes: the window's keys are shared
-    (host ints), the reference pose (B, 3) and the keyframe poses are each
-    lane's. Returns (points (B, capacity, 2), mask, conf)."""
-    dev = carry.points.device
+    """``core._aggregate_window`` for B lanes: the window's keys are the
+    same for every lane (host ints), the reference pose (B, 3), the
+    keyframe poses and, per lane, the frames are each lane's. Returns
+    (points (B, capacity, 2), mask, conf)."""
+    dev = carry.poses.device
     B = ref_pose.shape[0]
-    K = carry.points.shape[0]
+    K = carry.poses.shape[1]
     keys = first_key + torch.arange(window, device=dev)  # (W,)
     ok = (keys >= 0) & (keys < carry.num_kf)
     safe = torch.clamp(keys, 0, K - 1)
-    pts = carry.points[safe]
-    masks = carry.pmasks[safe] & ok[:, None]
-    confs = carry.pconf[safe]
+    pts = _keyed(carry, carry.points, safe)
+    masks = _keyed(carry, carry.pmasks, safe) & ok[:, None]
+    confs = _keyed(carry, carry.pconf, safe)
     if use_dr_relatives:
         safe_ref = min(max(ref_key, 0), K - 1)
         s = torch.exp(carry.graph.log_scale)  # (B, 2)
@@ -213,15 +251,17 @@ def _aggregate_window_lanes(carry: SlamCarry, ref_pose, first_key: int,
             rel = scaled_dr_between_lanes(carry, safe_ref, safe, s)
         else:
             scale = torch.cat([s, torch.ones((B, 1), device=dev)], dim=1)
-            rel = (se2_between(carry.dr_poses[safe_ref][None],
-                               carry.dr_poses[safe])[None]
-                   * scale[:, None, :])
+            ref_dr = _keyed(carry, carry.dr_poses, safe_ref)
+            between = se2_between(ref_dr[..., None, :],
+                                  _keyed(carry, carry.dr_poses, safe))
+            rel = between.expand(B, -1, -1) * scale[:, None, :]
     else:
         rel = se2_between(ref_pose[:, None], carry.poses[:, safe])
     moved = se2_transform_points(pts, rel)  # (B, W, N, 2)
+    W, N = masks.shape[-2:]
     return voxel_downsample_with_conf(
-        moved.reshape(B, -1, 2), masks.reshape(1, -1).expand(B, -1),
-        confs.reshape(1, -1).expand(B, -1), spec, capacity)
+        moved.reshape(B, -1, 2), masks.reshape(-1, W * N).expand(B, -1),
+        confs.reshape(-1, W * N).expand(B, -1), spec, capacity)
 
 
 def _mean_censi_lanes(mres):
@@ -242,8 +282,8 @@ def _run_nssm_lanes(c: SlamCarry, params: SlamParams, dims: SlamDims,
                     spec: VoxelGridSpec):
     """``core._run_nssm`` for B lanes: (ok, status, target key, transform,
     cov, overlap), each with a leading lane axis; the source key is the
-    newest keyframe, shared."""
-    dev = c.points.device
+    newest keyframe, the same for every lane."""
+    dev = c.poses.device
     B = c.poses.shape[0]
     lanes = torch.arange(B, device=dev)
     K, N, M = dims.max_keyframes, dims.max_points, dims.target_capacity
@@ -261,7 +301,7 @@ def _run_nssm_lanes(c: SlamCarry, params: SlamParams, dims: SlamDims,
     kf_idx = torch.arange(K, device=dev)
     global_pts = se2_transform_points(c.points, c.poses)  # (B, K, N, 2)
     flat_global = global_pts.reshape(B, -1, 2)
-    gmask = c.pmasks & (kf_idx < limit)[:, None]
+    gmask = c.pmasks & (kf_idx < limit)[:, None]  # (K, N) or (B, K, N)
 
     # 5-sigma FOV gating against each source-window frame
     src_keys = src_key - torch.arange(dims.nssm_source_frames, device=dev)
@@ -291,7 +331,7 @@ def _run_nssm_lanes(c: SlamCarry, params: SlamParams, dims: SlamDims,
     flat_sel = sel.reshape(B, -1)
     local1 = se2_transform_points(flat_global, se2_inverse(tpose1))
     tpts1, tmask1 = voxel_downsample(local1, flat_sel, spec, M)
-    flat_conf = c.pconf.reshape(-1)
+    flat_conf = c.pconf.reshape(-1, K * N).expand(B, -1)
 
     cov_src = c.covs[:, src_key]
     tstd = torch.sqrt(max_eig_2x2(cov_src[:, :2, :2]))
@@ -323,13 +363,14 @@ def _run_nssm_lanes(c: SlamCarry, params: SlamParams, dims: SlamDims,
             rel = scaled_dr_between_lanes(c, t2, kf_idx,
                                           torch.exp(c.graph.log_scale))
         else:
-            rel = se2_between(c.dr_poses[t2][:, None], c.dr_poses)
+            rel = se2_between(_lane_keyed(c, c.dr_poses, t2)[:, None],
+                              c.dr_poses)
     else:
         rel = se2_between(tpose2[:, None], c.poses)
     local2 = se2_transform_points(c.points, rel).reshape(B, -1, 2)
     mask2 = (c.pmasks & cand[..., None]).reshape(B, -1)
     tpts2, tmask2, tconf2 = voxel_downsample_with_conf(
-        local2, mask2, flat_conf.expand(B, -1), spec, M)
+        local2, mask2, flat_conf, spec, M)
     ntgt_w = conf_weight_lanes(tconf2, params)
 
     if dims.nssm_reinit_after_select:
@@ -345,10 +386,13 @@ def _run_nssm_lanes(c: SlamCarry, params: SlamParams, dims: SlamDims,
     mu = _pick(params.use_best_start_tf & best_ok, best_pose, mu)
 
     if dims.nssm_pair_refine:
-        rr = icp_pairs(c.points[src_key], c.pmasks[src_key], c.points[t2],
-                       c.pmasks[t2], mu, dims.icp,
-                       conf_weight_lanes(c.pconf[src_key], params),
-                       conf_weight_lanes(c.pconf[t2], params), lone_rows=1)
+        rr = icp_pairs(_keyed(c, c.points, src_key),
+                       _keyed(c, c.pmasks, src_key),
+                       _lane_keyed(c, c.points, t2), _lane_keyed(c, c.pmasks, t2),
+                       mu, dims.icp,
+                       conf_weight_lanes(_keyed(c, c.pconf, src_key), params),
+                       conf_weight_lanes(_lane_keyed(c, c.pconf, t2), params),
+                       lone_rows=1)
         dtf = se2_between(mu, rr.pose)
         consistent = (rr.ok & (_norm2(dtf) <= dims.pair_refine_max_dt)
                       & (torch.abs(dtf[:, 2]) <= dims.pair_refine_max_dr)
@@ -460,11 +504,14 @@ def _with_loop_lanes(c: SlamCarry, params: SlamParams, dims: SlamDims,
 def keyframe_step_lanes(carry: SlamCarry, frame: KeyframeInput,
                         params: SlamParams, dims: SlamDims):
     """``core.keyframe_step`` for B lanes (``params`` stacked, the carry
-    from :func:`slam_init_lanes`). An invalid frame leaves the carry
-    unchanged (outputs are None)."""
+    from :func:`slam_init_lanes`). The frame is shared (leaves (N, ...)) or
+    each lane's (leaves (B, N, ...), a carry with per-lane frames, every
+    lane's frame valid). An invalid shared frame leaves the carry unchanged
+    (outputs are None)."""
     if not bool(frame.valid):
         return carry, None
-    dev = carry.points.device
+    dev = carry.poses.device
+    per_lane = _per_lane(carry)
     B = carry.poses.shape[0]
     gcfg = dims.graph_config()
     spec = dims.agg_spec()
@@ -476,11 +523,11 @@ def keyframe_step_lanes(carry: SlamCarry, frame: KeyframeInput,
     dr_pose2 = pose3_to_pose2(frame.dr_pose3)
     is_first = key == 0
     prev = max(key - 1, 0)
-    dr_odom = se2_between(carry.dr_poses[prev], dr_pose2)
+    dr_odom = se2_between(_keyed(carry, carry.dr_poses, prev), dr_pose2)
     init_pose = (dr_pose2.expand(B, 3) if is_first else
                  se2_compose(carry.poses[:, prev], dr_odom))
 
-    n_source = torch.sum(frame.pmask)
+    n_source = torch.sum(frame.pmask, dim=-1)
     frame_conf = (frame.conf if frame.conf is not None
                   else torch.ones(frame.pmask.shape, device=dev))
     src_w = conf_weight_lanes(frame_conf, params)
@@ -559,13 +606,14 @@ def keyframe_step_lanes(carry: SlamCarry, frame: KeyframeInput,
     graph = set_pose_estimate_lanes(graph, key, value_pose)
     ssm_inserted = ssm_ok & (not is_first)
 
+    put = _set_col if per_lane else _set
     carry = carry._replace(
-        times=_set(carry.times, key, frame.time),
-        dr_poses3=_set(carry.dr_poses3, key, frame.dr_pose3),
-        dr_poses=_set(carry.dr_poses, key, dr_pose2),
-        points=_set(carry.points, key, frame.points),
-        pmasks=_set(carry.pmasks, key, frame.pmask),
-        pconf=_set(carry.pconf, key, frame_conf),
+        times=put(carry.times, key, frame.time),
+        dr_poses3=put(carry.dr_poses3, key, frame.dr_pose3),
+        dr_poses=put(carry.dr_poses, key, dr_pose2),
+        points=put(carry.points, key, frame.points),
+        pmasks=put(carry.pmasks, key, frame.pmask),
+        pconf=put(carry.pconf, key, frame_conf),
         num_kf=key + 1,
         ssm_slot=_set_col(carry.ssm_slot, key,
                           torch.where(ssm_inserted, fslot_ssm, -1)),
@@ -606,12 +654,74 @@ def keyframe_step_lanes(carry: SlamCarry, frame: KeyframeInput,
     return carry, out
 
 
-def lanes_to_carry(carry: SlamCarry) -> SlamCarry:
-    """The carry as ``parallel.stack_lanes`` stacks lone carries: the
-    shared fields repeated over the lanes, the host count ``num_kf`` an
-    int64 (B,) tensor."""
+def _take_lanes(tree, idx):
+    """Lanes ``idx`` (a (B',) tensor) of a per-lane carry or stacked params:
+    every tensor's leading axis indexed, host values kept."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_take_lanes(x, idx) for x in tree))
+    return tree[idx] if isinstance(tree, torch.Tensor) else tree
+
+
+def _put_lanes(tree, idx, part):
+    """``tree`` with lanes ``idx`` replaced by ``part`` (from
+    :func:`_take_lanes`); a host value becomes the part's (the count of the
+    lanes stepping)."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_put_lanes(x, idx, y) for x, y in zip(tree, part)))
+    if isinstance(tree, torch.Tensor):
+        return tree.index_copy(0, idx, part)
+    return part
+
+
+def scan_steps(frames: KeyframeInput, lanes: int):
+    """The scan's keyframe steps over stacked inputs, in order: for each,
+    (the lanes stepping, each one's slot, the step's frame). A shared
+    stream (leaves (K, ...)) steps every lane at each valid slot with the
+    shared frame; per-lane streams (leaves (B, K, ...)) step, at step j,
+    the lanes with a j-th valid slot, with those slots' frames (leaves
+    (B', ...)). Valid slots are read once, on the host."""
+    valid = np.asarray(torch.as_tensor(frames.valid).cpu())
+    if valid.ndim == 1:
+        for i in np.nonzero(valid)[0]:
+            yield list(range(lanes)), [int(i)] * lanes, _frame(frames, i, True)
+        return
+    dev = frames.points.device
+    slots = [np.nonzero(v)[0] for v in valid]
+    for j in range(max((len(sl) for sl in slots), default=0)):
+        active = [b for b in range(lanes) if len(slots[b]) > j]
+        at = [int(slots[b][j]) for b in active]
+        a = torch.as_tensor(active, device=dev)
+        i = torch.as_tensor(at, device=dev)
+        yield active, at, KeyframeInput(
+            time=frames.time[a, i], dr_pose3=frames.dr_pose3[a, i],
+            points=frames.points[a, i], pmask=frames.pmask[a, i], valid=True,
+            conf=None if frames.conf is None else frames.conf[a, i])
+
+
+def step_lanes(carry: SlamCarry, frame: KeyframeInput, params: SlamParams,
+               dims: SlamDims, active: list):
+    """:func:`keyframe_step_lanes` of the lanes ``active`` (a step of
+    :func:`scan_steps`): on the whole batch where every lane steps, else on
+    those lanes alone (a carry with per-lane frames), the others' carry
+    kept bit for bit. Returns (carry, the stepping lanes' outputs)."""
+    B = carry.poses.shape[0]
+    if len(active) == B:
+        return keyframe_step_lanes(carry, frame, params, dims)
+    idx = torch.as_tensor(active, device=carry.poses.device)
+    part, out = keyframe_step_lanes(_take_lanes(carry, idx), frame,
+                                    _take_lanes(params, idx), dims)
+    return _put_lanes(carry, idx, part), out
+
+
+def lanes_to_carry(carry: SlamCarry, num_kf: list) -> SlamCarry:
+    """The carry as ``parallel.stack_lanes`` stacks lone carries: shared
+    frame fields repeated over the lanes, ``num_kf`` (each lane's keyframe
+    count) an int64 (B,) tensor."""
     B = carry.poses.shape[0]
     dev = carry.poses.device
+    counts = torch.tensor(num_kf, dtype=torch.int64, device=dev)
+    if _per_lane(carry):
+        return carry._replace(num_kf=counts)
 
     def lanes(x):
         return x.expand((B,) + x.shape).contiguous()
@@ -620,39 +730,42 @@ def lanes_to_carry(carry: SlamCarry) -> SlamCarry:
         times=lanes(carry.times), dr_poses3=lanes(carry.dr_poses3),
         dr_poses=lanes(carry.dr_poses), points=lanes(carry.points),
         pmasks=lanes(carry.pmasks), pconf=lanes(carry.pconf),
-        dr_basis=lanes(carry.dr_basis),
-        num_kf=torch.full((B,), carry.num_kf, dtype=torch.int64, device=dev))
+        dr_basis=lanes(carry.dr_basis), num_kf=counts)
 
 
 def slam_scan_lanes(frames: KeyframeInput, params: SlamParams, dims: SlamDims,
                     dr_basis=None):
-    """Run the SLAM over stacked keyframe inputs (leading axis K, shared)
-    under B stacked parameter lanes: a loop over the valid slots, each step
-    advancing every lane. Returns (carry, StepOutputs) as
-    ``parallel.stack_lanes`` stacks B lone ``slam_scan`` results: every
-    leaf with a leading lane axis, outputs (B, K, ...) with zeros in
-    invalid slots."""
+    """Run the SLAM over stacked keyframe inputs under B stacked parameter
+    lanes: the inputs' leading axis K shared by the lanes, or (B, K) each
+    lane's own stream (``dr_basis`` then (B, K, 2, 2)). A loop over the
+    steps of :func:`scan_steps`, each advancing every lane that has a
+    frame. Returns (carry, StepOutputs) as ``parallel.stack_lanes`` stacks
+    B lone ``slam_scan`` results: every leaf with a leading lane axis,
+    outputs (B, K, ...) with zeros in each lane's invalid slots."""
     pin_fp32()
     dev = frames.points.device
     B = params.point_noise.shape[0]
-    K = frames.points.shape[0]
-    carry = slam_init_lanes(dims, B, dev)
+    K = frames.points.shape[-3]
+    carry = slam_init_lanes(dims, B, dev, per_lane_frames=frames.points.ndim == 4)
     if dr_basis is not None:
         carry = carry._replace(dr_basis=dr_basis.to(torch.float32))
-    valid = np.asarray(torch.as_tensor(frames.valid).cpu())
-    rows = {}
-    for i in np.nonzero(valid)[0]:
-        carry, rows[int(i)] = keyframe_step_lanes(
-            carry, _frame(frames, i, True), params, dims)
+    counts = [0] * B
+    steps = []
+    for active, at, frame in scan_steps(frames, B):
+        carry, row = step_lanes(carry, frame, params, dims, active)
+        steps.append((active, at, row))
+        for b in active:
+            counts[b] += 1
     fields = []
     for f in range(len(StepOutputs._fields)):
-        ref = next(iter(rows.values()))[f] if rows else None
+        ref = steps[0][2][f] if steps else None
         if ref is None:
             fields.append(None)
             continue
         out = torch.zeros((B, K) + tuple(ref.shape[1:]), dtype=ref.dtype,
                           device=dev)
-        for i, row in rows.items():
-            out[:, i] = row[f]
+        for active, at, row in steps:
+            out[torch.as_tensor(active, device=dev),
+                torch.as_tensor(at, device=dev)] = row[f]
         fields.append(out)
-    return lanes_to_carry(carry), StepOutputs(*fields)
+    return lanes_to_carry(carry, counts), StepOutputs(*fields)
