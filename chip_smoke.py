@@ -3,11 +3,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. Phases 1-3 run first, then phase 10,
-which times a kernel call; then phases 13 and 14 each run in a process of
-their own (``python3 chip_smoke.py phase-13`` and ``phase-14``: they read
-nothing of the other phases, phase 13 simulates phase 4's survey anew;
-their logs are relayed at the end) beside phases 4-9, 11-12 and 15, in
-order, in this one. Any failure raises and the script exits non-zero
+which times a kernel call; then phases 13, 14 and 16 each run in a process
+of their own (``python3 chip_smoke.py phase-13``, ``phase-14`` and
+``phase-16``: they read nothing of the other phases, phases 13 and 16
+simulate phase 4's survey anew; their logs are relayed at the end) beside
+phases 4-9, 11-12 and 15, in order, in this one. Any failure raises and the script exits non-zero
 without printing the result line:
 
 1. device: a CUDA card is required (there is no CPU fallback); prints
@@ -23,8 +23,10 @@ without printing the result line:
    at (128, 512, 256), extend, gate 65, ranks 10, 0 and 39, plus ranks 0,
    10 and 39 with both edges at (4, 96, 40), on the float pings and on an
    integer-valued copy; the selection kernel with tau 0 and -1, and on a
-   ragged (3, 97, 37) stack with NaN and infinities. Masks and thresholds
-   must be equal bit for bit. Times by CUDA events after warm-up,
+   ragged (3, 97, 37) stack with NaN and infinities; the sum kernel with
+   the strict edge at (128, 512, 256), SOCA, gate 65 (the parity lanes'
+   call, phase 16) on both stacks, its border rows undetected
+   (``check_strict``). Masks and thresholds must be equal bit for bit. Times by CUDA events after warm-up,
    alternating between the two stacks (so no launch reads its input from
    L2), in the order plain, kernel, kernel, plain; then the threshold path,
    a call whose gate no pixel passes (no window arithmetic: the tile's
@@ -141,7 +143,18 @@ without printing the result line:
    keyframes with an interior slot invalid, bit for bit; (d)
    ``voxel_downsample_with_keys`` and ``density_filter`` on phase 4's
    first keyframe clouds against the CPU; see ``run_dr_node`` to
-   ``run_cloud_api``.
+   ``run_cloud_api``;
+16. bench.py's reference-faithful parity lanes (``cli.parity_lane``,
+   bench.py:693-790) on phase 4's survey: the faithful lane (strict-edge
+   CFAR without the corroboration gate, icp.yaml's point-to-point ICP, 30
+   NSSM starts whose MCD mean is the loop transform, NSSM at every
+   keyframe) cold and warm, the SSM-only lane and odometry mode, with the
+   launch counters reset just before. Checks one sum-kernel launch a lane,
+   finite poses, odometry mode on dead reckoning with no loop, the faithful
+   and SSM-only lanes worse than dead reckoning (the faithful lane at least
+   PARITY_COLLAPSE_FACTOR times phase 4's ATE), the cold and warm faithful
+   runs bit for bit, and each lane's keyframes, loops and ATE below,
+   exactly; logs bench.py's ``parity`` dict; see ``run_parity``.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -339,6 +352,19 @@ MULTISEED_R05_SEED0 = {"keyframes": 73, "loops": 95, "ate_cm": 4.85,
                        "est_dvl_scale_xy": [1.02571, 0.99772]}
 YSCALE_R05_SEED0 = {"est_scale_xy": [1.03117, 0.99758], "x_err_pct": 0.78,
                     "y_err_pct": 0.217, "loops": 51, "ate_cm": 8.84}
+# phase 16: bench.py's reference-faithful parity lanes (cli/parity_lane.py)
+# on phase 4's survey. No JAX run of this path on this bag exists; each
+# lane's (keyframes, loops, ATE m, ATE deg) is the port's own first result on
+# an H100 80GB HBM3 (700 W), held exactly (0.1 mm, 0.001 deg). The faithful
+# lane is chaotic by mechanism (tests/test_parity.py): its guards are
+# directional, worse than dead reckoning and at least PARITY_COLLAPSE_FACTOR
+# times phase 4's production ATE; odometry mode must reproduce dead
+# reckoning within PARITY_ODOMETRY_ATOL_M with no loop
+PARITY_EXPECTED = {"faithful": (73, 21, 3.402, 10.718),
+                   "ssm_only": (73, 0, 4.7035, 7.955),
+                   "odometry": (73, 0, 0.4017, 0.252)}
+PARITY_COLLAPSE_FACTOR = 5.0
+PARITY_ODOMETRY_ATOL_M = 1e-3
 # the JAX package's state array layout (sonar_slam_tpu/io/state.py)
 JAX_STATE_DTYPE = [("time", "<f8"), ("pose", "<f4", (3,)),
                    ("dr_pose3", "<f4", (6,)), ("cov", "<f4", (9,))]
@@ -402,6 +428,71 @@ def bound(imgs, ops: float, with_threshold: bool = False) -> tuple[float, str]:
     bytes_ms = imgs.numel() * per_pixel / HBM_BYTES_S * 1e3
     ops_ms = ops / FP32_OPS_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def window_weight(t: int, g: int, device):
+    """``conv2d`` weights of a pixel's two training windows along the rows:
+    output channel 0 sums rows r - t - g ... r - g - 1, channel 1 rows
+    r + g + 1 ... r + t + g (the sum kernel's library yardstick)."""
+    import torch
+
+    hw = t + g
+    weight = torch.zeros((2, 1, 2 * hw + 1, 1), device=device)
+    weight[0, 0, :t] = 1.0
+    weight[1, 0, hw + g + 1:] = 1.0
+    return weight
+
+
+def time_sum_kernel(stacks, edge: str, lib_stacks) -> dict:
+    """The sum kernel's SOCA call at (train 20, guard 5, gate 65) with
+    ``edge``, timed by CUDA events over the two alternating ``stacks``:
+    plain, kernel, kernel, plain (mask only), then with the threshold map,
+    with a gate no pixel passes (no window arithmetic: the tile's floor),
+    and ``conv2d`` of ``window_weight`` on ``lib_stacks`` (the window sums
+    alone). The mask's bound counts the gated pixels of the rows that may
+    detect; the threshold map needs every such pixel's sums. Logs and
+    returns the times, bounds and shares."""
+    import torch.nn.functional as F
+    from sonar_slam_torch.kernels.cfar_cuda import (cfar_detect, cfar_plain,
+                                                    valid_rows)
+    from sonar_slam_torch.kernels.cfar_factors import threshold_factor_soca
+
+    imgs = stacks[0]
+    t, g, gate = 20, 5, 65.0
+    tau = threshold_factor_soca(40, 0.1)
+    weight = window_weight(t, g, imgs.device)
+
+    def kern(x):
+        cfar_detect(x, t, g, tau, "SOCA", gate, edge)
+
+    def plain(x):
+        cfar_plain(x, t, g, tau, "SOCA", gate, edge)
+
+    p1 = cuda_time_ms(plain, stacks)
+    k1 = cuda_time_ms(kern, stacks)
+    k2 = cuda_time_ms(kern, stacks)
+    p2 = cuda_time_ms(plain, stacks)
+    kt = cuda_time_ms(lambda x: cfar_detect(
+        x, t, g, tau, "SOCA", gate, edge, with_threshold=True), stacks)
+    floor = cuda_time_ms(
+        lambda x: cfar_detect(x, t, g, tau, "SOCA", 1e30, edge), stacks)
+    lib = cuda_time_ms(lambda x: F.conv2d(x, weight), lib_stacks)
+    ms = min(k1, k2)
+    rows = valid_rows(imgs.shape[1], t, g, edge, imgs.device)
+    bound_ms, bound_by = bound(imgs, 2 * t * gated_pixels(imgs[:, rows], gate))
+    thr_bound, thr_by = bound(imgs, 2 * t * imgs[:, rows].numel(),
+                              with_threshold=True)
+    log(f"cfar SOCA {edge} {tuple(imgs.shape)} mask only ms: kernel {k1} "
+        f"{k2}, plain {p1} {p2}; with the threshold map {kt} (bound "
+        f"{thr_bound} ({thr_by}), share {thr_bound / kt}); with a gate no "
+        f"pixel passes (no window arithmetic) {floor}; conv2d window sums "
+        f"{lib}; bound {bound_ms} ({bound_by}), share {bound_ms / ms}")
+    return {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+            "bound_by": bound_by, "roofline_share": bound_ms / ms,
+            "library_ms": lib, "floor_ms": floor, "ms_with_threshold": kt,
+            "bound_ms_with_threshold": thr_bound,
+            "bound_by_with_threshold": thr_by,
+            "roofline_share_with_threshold": thr_bound / kt}
 
 
 def gated_pixels(imgs, gate: float) -> int:
@@ -582,61 +673,65 @@ def check_kernel(stacks):
     # the library yardstick: both window sums of every pixel by one
     # convolution of the replicate-padded stack (no threshold, no mask)
     hw = t + g
-    weight = torch.zeros((2, 1, 2 * hw + 1, 1), device=imgs.device)
-    weight[0, 0, :t] = 1.0  # rows r - hw ... r - g - 1
-    weight[1, 0, hw + g + 1:] = 1.0  # rows r + g + 1 ... r + hw
     padded = [F.pad(x[:, None], (0, 0, hw, hw), mode="replicate")
               for x in stacks]
-    sums = F.conv2d(padded[0], weight)
+    sums = F.conv2d(padded[0], window_weight(t, g, imgs.device))
     lead, lag = _window_sums(imgs, t, g)
     conv_err = max(float((sums[:, 0] - lead).abs().max()),
                    float((sums[:, 1] - lag).abs().max()))
     log(f"conv2d window sums against the in-order sums: max abs diff "
         f"{conv_err} (sums up to {float(lead.max())})")
     del sums, lead, lag
-
-    def kern(x):
-        cfar_detect(x, t, g, tau, "SOCA", gate, "extend")
-
-    def kern_thr(x):
-        cfar_detect(x, t, g, tau, "SOCA", gate, "extend", with_threshold=True)
-
-    def plain(x):
-        cfar_plain(x, t, g, tau, "SOCA", gate, "extend")
-
-    def library(xp):
-        F.conv2d(xp, weight)
-
-    # plain, kernel, kernel, plain on the same card, alternating stacks
-    p1 = cuda_time_ms(plain, stacks)
-    k1 = cuda_time_ms(kern, stacks)
-    k2 = cuda_time_ms(kern, stacks)
-    p2 = cuda_time_ms(plain, stacks)
-    kt = cuda_time_ms(kern_thr, stacks)
-    floor = cuda_time_ms(
-        lambda x: cfar_detect(x, t, g, tau, "SOCA", 1e30, "extend"), stacks)
-    lib = cuda_time_ms(library, padded)
-    ms = min(k1, k2)
-    bound_ms, bound_by = bound(imgs, 2 * t * gated_pixels(imgs, gate))
-    # with the threshold map every pixel's sums are needed (2 * t adds)
-    thr_bound, thr_by = bound(imgs, 2 * t * imgs.numel(), with_threshold=True)
-    log(f"cfar SOCA extend {tuple(imgs.shape)} mask only ms: kernel {k1} {k2}, "
-        f"plain {p1} {p2}; with the threshold map {kt} (bound {thr_bound} "
-        f"({thr_by}), share {thr_bound / kt}); with a gate no pixel "
-        f"passes (no window arithmetic) {floor}; conv2d window sums {lib}; "
-        f"bound {bound_ms} ({bound_by}), share {bound_ms / ms}")
     return {"name": "cfar_sum_kernel (CA/SOCA/GOCA, fused intensity gate)",
             "route": "cuda",
             "source": "sonar_slam_torch/kernels/csrc/cfar.cu",
             "replaces": "sonar_slam_tpu/kernels/cfar_pallas.py:32",
             "launches": 0, "max_abs_err": thr_err,
-            "ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-            "bound_by": bound_by, "roofline_share": bound_ms / ms,
-            "library_ms": lib, "ms_with_threshold": kt,
-            "bound_ms_with_threshold": thr_bound,
-            "bound_by_with_threshold": thr_by,
-            "roofline_share_with_threshold": thr_bound / kt,
+            **time_sum_kernel(stacks, "extend", padded),
             "library_call": "torch.nn.functional.conv2d, window sums only"}
+
+
+def check_strict(stacks) -> dict:
+    """The sum kernel with the strict edge at the feature path's shape
+    (128, 512, 256), SOCA, gate 65: the call of the parity lanes' front end
+    (phase 16). Rows [0, t+g) and [R-t-g, R) never detect; the 64-row tiles
+    straddle those bands. On both stacks the mask (mask-only call and
+    threshold call) and the threshold map must equal the plain version's bit
+    for bit. Timed as the extend row (``check_kernel``); the bound counts
+    the gated pixels of the interior rows, the yardstick is ``conv2d``
+    without padding (the interior rows' window sums). Returns the row for
+    the kernel table entry."""
+    import torch
+    from sonar_slam_torch.kernels.cfar_cuda import (cfar_detect, cfar_plain,
+                                                    valid_rows)
+    from sonar_slam_torch.kernels.cfar_factors import threshold_factor_soca
+
+    t, g, gate = 20, 5, 65.0
+    tau = threshold_factor_soca(40, 0.1)
+    thr_err = 0.0
+    for i, imgs in enumerate(stacks):
+        det_k, thr_k = cfar_detect(imgs, t, g, tau, "SOCA", gate, "strict",
+                                   with_threshold=True)
+        det_m = cfar_detect(imgs, t, g, tau, "SOCA", gate, "strict")
+        det_p, thr_p = cfar_plain(imgs, t, g, tau, "SOCA", gate, "strict")
+        torch.cuda.synchronize()
+        rows = valid_rows(imgs.shape[1], t, g, "strict", imgs.device)
+        mismatch = int((det_k != det_p).sum()) + int((det_m != det_p).sum())
+        border = int(det_k[:, ~rows].sum()) + int(det_m[:, ~rows].sum())
+        err = float((thr_k - thr_p).abs().max())
+        bitwise = bool(torch.equal(thr_k, thr_p))
+        log(f"cfar SOCA strict {tuple(imgs.shape)} stack {i}: mask mismatches "
+            f"{mismatch} of {2 * det_p.numel()}, detections {int(det_p.sum())}, "
+            f"border-row detections {border}, threshold max abs err {err} "
+            f"(bitwise equal: {bitwise})")
+        if mismatch or border or not bitwise:
+            raise RuntimeError("strict-edge CFAR kernel disagrees with its "
+                               "plain version")
+        thr_err = max(thr_err, err)
+        del det_k, thr_k, det_m, det_p, thr_p
+    return {"shape": list(stacks[0].shape), "edge": "strict", "gate": gate,
+            "max_abs_err": thr_err,
+            **time_sum_kernel(stacks, "strict", [x[:, None] for x in stacks])}
 
 
 def check_os_kernel(stacks):
@@ -1222,10 +1317,7 @@ def run_dual_lane(dev, entry) -> int:
     vb, vby = bound(vimgs, ops)
     # the library yardstick at this shape: both window sums of every row
     # that may detect, by one convolution (strict edge: no padding)
-    hw = t + g
-    weight = torch.zeros((2, 1, 2 * hw + 1, 1), device=dev)
-    weight[0, 0, :t] = 1.0
-    weight[1, 0, hw + g + 1:] = 1.0
+    weight = window_weight(t, g, dev)
     vstacks = [x[:, None] for x in stacks]
     lib_dispatch = cuda_time_ms(lambda x: F.conv2d(x, weight), vstacks)
     lib_ms = queued_ms(lambda x: F.conv2d(x, weight), vstacks)
@@ -2159,6 +2251,88 @@ def run_repeats(dev, work: str) -> dict:
     return launches
 
 
+def run_parity(bag, dev) -> dict:
+    """Phase 16: ``cli.parity_lane.run_parity_lanes`` at the full
+    configuration on phase 4's survey: the faithful lane cold and warm, the
+    SSM-only lane and odometry mode. Checks one CFAR launch a lane, all of
+    the sum kernel (strict edge); finite poses; odometry mode within
+    PARITY_ODOMETRY_ATOL_M of the dead-reckoning keyframe poses with no
+    loop; the SSM-only and faithful lanes' ATE above dead reckoning's, the
+    faithful lane's at least PARITY_COLLAPSE_FACTOR times phase 4's; the
+    faithful lane's cold and warm runs equal bit for bit; each lane's
+    keyframes, loops and ATE pinned. First, the lanes' odometry (plain dead
+    reckoning) against bench.py's stage 1 (the full-DR lane of the scan with
+    the DVL basis lanes), bit for bit. Logs bench.py's parity dict with the
+    peak MiB and the phase's seconds. Returns the CFAR launches by
+    kernel."""
+    import numpy as np
+    import torch
+    from sonar_slam_torch.cli.parity_lane import (loop_errors,
+                                                  run_parity_lanes,
+                                                  truth_at_keyframes)
+    from sonar_slam_torch.pipeline import ate_heading_deg, ate_rmse, odometry
+
+    _, plain, _ = odometry(bag, dev)
+    _, stage1, _ = odometry(bag, dev, basis=True)
+    if not torch.equal(plain, stage1):
+        raise RuntimeError(
+            "parity lanes: plain dead reckoning parts from bench.py's stage 1 "
+            f"by {float((plain - stage1).abs().max())} m")
+    log(f"parity lanes: plain dead reckoning equals bench.py's stage 1 (the "
+        f"basis scan's full lane) bit for bit over {plain.shape[0]} ticks")
+    del plain, stage1
+
+    run, took, peak, launches = _counted(
+        lambda: run_parity_lanes(bag, True, dev))
+    log(json.dumps({"parity": run.parity, "peak_mib": peak,
+                    "phase_s": took}))
+    for name, n in run.launches.items():
+        if n["sum"] != 1 or sum(n.values()) != 1:
+            raise RuntimeError(f"parity lane {name} made CFAR launches {n}, "
+                               "expected one of the sum kernel")
+    _sum_only("phase 16", launches, len(run.launches))
+    ate, dr_ate, pins = {}, {}, {}
+    for name, res in (("faithful_cold", run.cold), *run.lanes.items()):
+        truth = truth_at_keyframes(res, bag)
+        ate[name] = ate_rmse(res.trajectory, truth)
+        dr_ate[name] = ate_rmse(res.dr_trajectory, truth)
+        deg = ate_heading_deg(res.trajectory, truth)
+        errs = loop_errors(res, bag)
+        log(f"parity lane {name}: {res.num_keyframes} keyframes, "
+            f"{res.carry.num_loops} loops (largest loop error "
+            f"{errs.max() if len(errs) else None} m), ATE {ate[name]} m / "
+            f"{deg} deg, DR ATE {dr_ate[name]} m, stages s "
+            f"{json.dumps(res.stage_s)}")
+        if not np.isfinite(res.trajectory).all():
+            raise RuntimeError(f"parity lane {name}: trajectory not finite")
+        pins[name] = (res.num_keyframes, res.carry.num_loops,
+                      round(ate[name], 4), round(deg, 3))
+    odo = run.lanes["odometry"]
+    dev_m = run.parity["odometry_max_dev_m"]
+    if dev_m >= PARITY_ODOMETRY_ATOL_M or odo.carry.num_loops != 0:
+        raise RuntimeError(f"odometry mode: {dev_m} m from dead reckoning, "
+                           f"{odo.carry.num_loops} loops")
+    for name in ("ssm_only", "faithful"):
+        if not ate[name] > dr_ate[name]:
+            raise RuntimeError(f"parity lane {name}: ATE {ate[name]} m not "
+                               f"above dead reckoning's {dr_ate[name]} m")
+    if ate["faithful"] < PARITY_COLLAPSE_FACTOR * FULL_ATE_M:
+        raise RuntimeError(f"faithful lane: ATE {ate['faithful']} m, expected "
+                           f">= {PARITY_COLLAPSE_FACTOR} x {FULL_ATE_M} m")
+    cold, warm = run.cold, run.lanes["faithful"]
+    if not (_bit_equal(tuple(cold.carry), tuple(warm.carry))
+            and np.array_equal(cold.keyframe_ping_idx, warm.keyframe_ping_idx)
+            and np.array_equal(cold.trajectory.view(np.uint32),
+                               warm.trajectory.view(np.uint32))):
+        raise RuntimeError("faithful lane: the cold and warm runs differ")
+    log("parity lanes: the faithful lane's cold and warm runs are equal bit "
+        "for bit")
+    for name in run.lanes:
+        _check_pin(f"parity lane {name} (keyframes, loops, ATE m, ATE deg)",
+                   pins[name], PARITY_EXPECTED[name])
+    return launches
+
+
 def run_survey_bag() -> int:
     """Phase 4's survey (2,398 pings of 512 x 256) written as an lz4 ROS bag
     in rosbag's 768 kB chunks, each one LZ4 frame, then converted by
@@ -2489,6 +2663,7 @@ def main() -> int:
     stacks = [torch.as_tensor(bag.ping_images[i:i + 128], device=dev)
               .contiguous() for i in (0, 128)]
     entry = check_kernel(stacks)
+    entry["strict"] = check_strict(stacks)
     entry_os = check_os_kernel(stacks)
     del stacks
     torch.cuda.empty_cache()
@@ -2497,10 +2672,10 @@ def main() -> int:
     # card: it times its vertical call
     by_path = {"dual": run_dual_lane(dev, entry)}
 
-    # 13-14) the parallel/ entry points and the accuracy CLIs, each in a
-    # process of its own beside phases 4-9, 11-12 and 15 (they read nothing
-    # of the other phases)
-    workers = [PhaseWorker(phase) for phase in ("13", "14")]
+    # 13, 14, 16) the parallel/ entry points, the accuracy CLIs and the
+    # parity lanes, each in a process of its own beside phases 4-9, 11-12
+    # and 15 (they read nothing of the other phases)
+    workers = [PhaseWorker(phase) for phase in ("13", "14", "16")]
     try:
         kalman, lz4_rates, node_api = run_main_phases(
             bag, dev, dims, params_on, fcfg, entry, entry_os, by_path)
@@ -2514,6 +2689,8 @@ def main() -> int:
         by_path.update(sums)
         by_path_os.update(os_launches)
     entry["launches_by_path"] = by_path
+    entry["strict"]["launches_by_path"] = {
+        "parity_lanes": by_path["parity_lanes"]}
     entry_os["launches_by_path"] = by_path_os
 
     log(f"chip_smoke.py total wall {time.perf_counter() - t_start:.1f} s "
@@ -2670,7 +2847,7 @@ PHASE_RESULT = "launches by path: "
 
 
 class PhaseWorker:
-    """``python3 chip_smoke.py phase-<phase>`` (13 or 14) in a process of
+    """``python3 chip_smoke.py phase-<phase>`` (13, 14 or 16) in a process of
     its own (the kernels already built), its output kept in temporary files
     until :meth:`result`, which relays it and returns the phase's launches
     by path, or raises if the process failed. :meth:`stop` ends the process
@@ -2713,18 +2890,23 @@ class PhaseWorker:
 
 
 def phase_main(phase: str) -> int:
-    """Phase 13 or 14 alone, on the card, in the process that ``main``
+    """Phase 13, 14 or 16 alone, on the card, in the process that ``main``
     starts: prints the phase's launches by path as its last line."""
     import torch
 
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    if phase == "13":
+    if phase in ("13", "16"):
         from sonar_slam_torch.io.simulate import simulate_bag
 
-        by_path = run_parallel_entry_points(
-            simulate_bag(full_config(seed=0)[0]), dev)
+        bag = simulate_bag(full_config(seed=0)[0])
+    if phase == "13":
+        by_path = run_parallel_entry_points(bag, dev)
+    elif phase == "16":
+        launches = run_parity(bag, dev)
+        by_path = ({"parity_lanes": launches["sum"]},
+                   {"parity_lanes": launches["os_mask"] + launches["os_select"]})
     else:
         by_path = run_accuracy_clis(dev)
     log(f"phase {phase} took {time.perf_counter() - t0:.1f} s in a process "
@@ -2737,4 +2919,5 @@ def phase_main(phase: str) -> int:
 if __name__ == "__main__":
     arg = " ".join(sys.argv[1:])
     sys.exit(run_survey_bag() if arg == "survey-bag" else
-             phase_main(arg[6:]) if arg in ("phase-13", "phase-14") else main())
+             phase_main(arg[6:]) if arg in ("phase-13", "phase-14", "phase-16")
+             else main())

@@ -3,8 +3,9 @@ JAX package: a fresh interpreter with those imports blocked imports every
 module of the port and chip_smoke.py. None of them loads PyYAML, matplotlib
 or PIL either (the card's machine need not have them), and neither does a
 whole run of ``cli.replay``, of ``cli.two_robot_demo`` (without
-``--plot``) or of ``cli.map_probe`` (which imports ``cli.error_budget``, the
-configurations of every accuracy CLI) on the CPU. Every subpackage of the
+``--plot``), of ``cli.map_probe`` (which imports ``cli.error_budget``, the
+configurations of every accuracy CLI) or of ``cli.parity_lane``'s lanes on
+the CPU. Every subpackage of the
 port exports every name that the JAX package's exports, but the device-mesh
 helpers (``NOT_PORTED``)."""
 
@@ -63,7 +64,7 @@ def test_port_imports_no_jax():
                 "cli.sharded_replay", "cli.error_budget", "cli.multi_seed",
                 "cli.yscale_lane", "cli.accuracy_sweep", "cli.map_probe",
                 "cli.frontier_coverage_probe", "cli.run_repeats",
-                "cli.plot_runs", "io.lz4_lib"):
+                "cli.plot_runs", "cli.parity_lane", "io.lz4_lib"):
         assert "sonar_slam_torch." + new in names, new
 
 
@@ -195,6 +196,46 @@ def test_cli_map_probe_loads_no_jax_yaml_matplotlib_or_pil():
                  MALLOC_TRIM_THRESHOLD_="68719476736"))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "present: []"
+
+
+_PARITY_SCRIPT = r"""
+import importlib.abc, json, sys
+sys.path.insert(0, {root!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sonar_slam_tpu", "scripts",
+                                  "bench", "error_budget"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+from sonar_slam_torch.cli import parity_lane
+from sonar_slam_torch.io.simulate import SimConfig, simulate_bag
+
+bag = simulate_bag(SimConfig(duration=20.0, speed=0.5, sonar_rate=1.0,
+                             num_ranges=96, num_bearings=48, loop_radius=5.0,
+                             imu_rate=10.0))
+run = parity_lane.run_parity_lanes(bag, False, "cpu")
+assert run.lanes["faithful"].num_keyframes >= 2, run.parity
+print(json.dumps(sorted(run.parity)))
+present = sorted(m for m in ("jax", "yaml", "matplotlib", "PIL")
+                 if m in sys.modules)
+print("present:", present)
+"""
+
+
+def test_cli_parity_lane_runs_without_jax():
+    """``cli.parity_lane``'s three lanes (the faithful lane twice) on a
+    20 s survey with JAX and the JAX package blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _PARITY_SCRIPT.format(root=ROOT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "present: []"
+    assert "odometry_max_dev_m" in lines[-2] and "ssm_only_ate_m" in lines[-2]
 
 
 # Device-mesh helpers: on one card there is nothing to shard over, and the
