@@ -3,11 +3,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. Phases 1-3 run first, then phase 10,
-which times a kernel call; then phases 13, 14 and 16 each run in a process
-of their own (``python3 chip_smoke.py phase-13``, ``phase-14`` and
-``phase-16``: they read nothing of the other phases, phases 13 and 16
-simulate phase 4's survey anew; their logs are relayed at the end) beside
-phases 4-9, 11-12 and 15, in order, in this one. Any failure raises and the script exits non-zero
+which times a kernel call; then phases 13, 14, 16 and 17 each run in a
+process of their own (``python3 chip_smoke.py phase-13``, ``phase-14``,
+``phase-16`` and ``phase-17``: they read nothing of the other phases,
+phases 13 and 16 simulate phase 4's survey anew; their logs are relayed at
+the end) beside phases 4-9, 11-12 and 15, in order, in this one. Any failure raises and the script exits non-zero
 without printing the result line:
 
 1. device: a CUDA card is required (there is no CPU fallback); prints
@@ -102,7 +102,7 @@ without printing the result line:
    scan's kernel launches a keyframe step at 64 lanes at most twice those
    at one lane, under ``torch.profiler``), (b) ``cli.two_robot_demo``
    (one launch a robot), (c)
-   ``cli.sharded_replay --max-keyframes 1024 --check --duration 60`` (the
+   ``cli.sharded_replay --max-keyframes 1024 --capacity-check --duration 60`` (the
    replay at capacity 1024 against capacity 128; one launch a replay), each
    with its
    wall time and peak memory, and the keyframes, loops and ATE below,
@@ -154,7 +154,24 @@ without printing the result line:
    and SSM-only lanes worse than dead reckoning (the faithful lane at least
    PARITY_COLLAPSE_FACTOR times phase 4's ATE), the cold and warm faithful
    runs bit for bit, and each lane's keyframes, loops and ATE below,
-   exactly; logs bench.py's ``parity`` dict; see ``run_parity``.
+   exactly; logs bench.py's ``parity`` dict; see ``run_parity``;
+17. the device axis (``parallel/mesh.py``) over two ranks, each its own
+   process on ``cuda:(rank % cards)`` (both on one card here), gathers
+   over gloo, each path against its one-process run in the same phase
+   with the launch counters reset just before (the ranks' launches added
+   to this process's counters): (a) ``cli.sweep --lanes 64 --devices 2``
+   (32 lanes a rank, one CFAR launch a rank), all 64 lanes bit for bit with
+   the one-process ``cli.sweep`` and phase 13a's pins; (b)
+   ``cli.two_robot_demo --devices 2`` (one robot a rank), both robots bit
+   for bit with the one-process batched scan and phase 13b's pins; (c)
+   ``cli.sharded_replay --max-keyframes 1024 --devices 2 --check
+   --duration 60``: the refinement's fan-outs sharded, the same keyframes
+   and loops as the one-process replay, max |dpose| under 1e-5 m (whether
+   bit for bit logged), phase 13c's pins, one CFAR launch a rank counted
+   apart from the one-process replay's; (d) the three keyframe-axis
+   functions at K 1024, N 256, W 3 over two ranks, equal to the unsharded
+   calls; wall times, each rank's peak MiB and the spawn time logged; see
+   ``run_mesh_sweep`` to ``run_mesh_kf``.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -288,7 +305,7 @@ ROBOT_LAUNCH_RATIO = 1.5
 SHARDED_EXPECTED = (13, 4, 0.0496)
 # phase 13c replays a 60 s survey: on the card the 90 s default's loops
 # are ill-conditioned in the capacity (K 1024 closes 9 loops, K 128 eight;
-# python tests/test_torch_sharded_replay.py cuda), so --check would fail
+# python tests/test_torch_sharded_replay.py cuda), so --capacity-check would fail
 # there; at 60 s the two capacities agree within 1.9e-6 m
 SHARDED_DURATION = "60"
 # phase 14: the accuracy CLIs. The pins are the port's own results on
@@ -366,6 +383,15 @@ PARITY_EXPECTED = {"faithful": (73, 21, 3.402, 10.718),
 PARITY_COLLAPSE_FACTOR = 5.0
 PARITY_ODOMETRY_ATOL_M = 1e-3
 # the JAX package's state array layout (sonar_slam_tpu/io/state.py)
+# phase 17: the device axis (parallel/mesh.py) over MESH_RANKS ranks, which
+# share cuda:0 on a one-card machine; each path is held to its one-process
+# run in this phase, and to phase 13's pins. 17c's bound is the JAX
+# script's (scripts/sharded_replay.py: sharded within 1e-5 m of one device).
+# 17d: the keyframe-axis functions at (K, N, W).
+MESH_RANKS = 2
+MESH_KF_SHAPE = (1024, 256, 3)
+MESH_TIMEOUT_S = 600.0
+
 JAX_STATE_DTYPE = [("time", "<f8"), ("pose", "<f4", (3,)),
                    ("dr_pose3", "<f4", (6,)), ("cov", "<f4", (9,))]
 
@@ -2049,12 +2075,12 @@ def run_two_robot(dev) -> dict:
 
 
 def run_sharded(dev) -> dict:
-    """Phase 13c: ``cli.sharded_replay --max-keyframes 1024 --check
+    """Phase 13c: ``cli.sharded_replay --max-keyframes 1024 --capacity-check
     --duration 60``. Returns its launches by kernel."""
     from sonar_slam_torch.cli import sharded_replay
 
     run, took, _, launches = _counted(lambda: sharded_replay.main(
-        ["--max-keyframes", "1024", "--check", "--duration",
+        ["--max-keyframes", "1024", "--capacity-check", "--duration",
          SHARDED_DURATION]))
     res, ref = run.result, run.check
     log(f"cli.sharded_replay: whole CLI {took:.2f} s; K "
@@ -2331,6 +2357,183 @@ def run_parity(bag, dev) -> dict:
         _check_pin(f"parity lane {name} (keyframes, loops, ATE m, ATE deg)",
                    pins[name], PARITY_EXPECTED[name])
     return launches
+
+
+def _mesh_launches(name: str, launches: dict, expected: int):
+    if launches["sum"] != expected or sum(launches.values()) != expected:
+        raise RuntimeError(f"{name} made CFAR launches {launches}, expected "
+                           f"{expected}, all of the sum kernel")
+
+
+def run_mesh_sweep(dev) -> dict:
+    """Phase 17a: ``cli.sweep --simulate --lanes 64`` in this process, then
+    with ``--devices MESH_RANKS`` (each rank its own preprocessing, one CFAR
+    launch a rank, and a block of lanes): every lane bit for bit with the
+    one-process sweep, phase 13a's pins on the mesh run; both ``wall_s``,
+    each rank's peak MiB and the spawn time logged. Returns the mesh run's
+    launches by kernel."""
+    from sonar_slam_torch.cli import sweep as sweep_cli
+
+    argv = ["--simulate", "--lanes", str(SWEEP_LANES)]
+    one, took1, _, _ = _counted(lambda: sweep_cli.main(argv))
+    run, took, _, launches = _counted(lambda: sweep_cli.main(
+        argv + ["--devices", str(MESH_RANKS)]))
+    rep = run.report
+    equal = [_bit_equal(_lane(run.carry, i), _lane(one.carry, i))
+             for i in range(SWEEP_LANES)]
+    log(f"mesh cli.sweep --lanes {SWEEP_LANES} --devices {MESH_RANKS} "
+        f"({rep['ranks_per_card']} ranks a card): whole CLI {took:.2f} s "
+        f"(one process {took1:.2f} s), wall_s {rep['wall_s']} (one process "
+        f"{one.report['wall_s']}), compile_s {rep['compile_s']} (one process "
+        f"{one.report['compile_s']}), spawn to every rank ready "
+        f"{run.spawn_s:.2f} s, peak MiB a rank {run.rank_peak_mib} (one "
+        f"process {one.rank_peak_mib}), CFAR launches {launches}; lanes bit "
+        f"for bit with the one-process sweep {sum(equal)}/{SWEEP_LANES}")
+    if not all(equal) or not _bit_equal(run.carry, one.carry):
+        raise RuntimeError("mesh cli.sweep: lanes "
+                           f"{[i for i, e in enumerate(equal) if not e]} "
+                           "differ from the one-process sweep")
+    _check_pin("mesh cli.sweep lanes 0-7 (keyframes, loops per lane, best "
+               "ATE m)", (rep["keyframes"], rep["loops_per_lane"][:8],
+                          round(min(run.ates[:8]), 4)), SWEEP_EXPECTED)
+    _mesh_launches("mesh cli.sweep", launches, MESH_RANKS)
+    return launches
+
+
+def run_mesh_two_robot(dev) -> dict:
+    """Phase 17b: ``cli.two_robot_demo`` in this process, then with
+    ``--devices MESH_RANKS`` (one robot a rank; each rank builds both
+    robots' frames, two CFAR launches a rank): each robot's carry bit for
+    bit with the one-process batched scan, phase 13b's pins on the mesh
+    run. Returns the mesh run's launches by kernel."""
+    from sonar_slam_torch.cli import two_robot_demo
+
+    one, took1, _, _ = _counted(lambda: two_robot_demo.main([]))
+    run, took, _, launches = _counted(lambda: two_robot_demo.main(
+        ["--devices", str(MESH_RANKS)]))
+    equal = [_bit_equal(_lane(run.carries, r), _lane(one.carries, r))
+             for r in range(2)]
+    log(f"mesh cli.two_robot_demo --devices {MESH_RANKS}: whole CLI "
+        f"{took:.2f} s (one process {took1:.2f} s), scan wall_s "
+        f"{run.scan_wall_s:.3f} (one process {one.scan_wall_s:.3f}), CFAR "
+        f"launches {launches}; robots bit for bit with the one-process scan "
+        f"{equal}")
+    if not all(equal):
+        raise RuntimeError("mesh cli.two_robot_demo: a robot differs from the "
+                           "one-process scan")
+    _check_pin("mesh cli.two_robot_demo (keyframes, loops, proposals, PCM "
+               "accepts, clique, merged ATE m)",
+               (run.keyframes, run.loops, run.proposals, run.accepted,
+                run.clique, round(run.ate_joint_m, 4)), TWO_ROBOT_EXPECTED)
+    _mesh_launches("mesh cli.two_robot_demo", launches, 2 * MESH_RANKS)
+    return launches
+
+
+def run_mesh_sharded(dev) -> dict:
+    """Phase 17c: ``cli.sharded_replay --max-keyframes 1024 --devices
+    MESH_RANKS --check --duration 60`` (the CLI holds the sharded replay to
+    the one-process replay: the same keyframes and loops, max |dpose| under
+    the JAX script's 1e-5 m); logs whether it is bit for bit; phase 13c's
+    pins on the sharded replay. Returns the sharded replay's launches by
+    kernel (one a rank; the one-process replay's are checked apart)."""
+    from sonar_slam_torch.cli import sharded_replay
+
+    run, took, _, launches = _counted(lambda: sharded_replay.main(
+        ["--max-keyframes", "1024", "--devices", str(MESH_RANKS), "--check",
+         "--duration", SHARDED_DURATION]))
+    res, one = run.result, run.one_process
+    log(f"mesh cli.sharded_replay --devices {MESH_RANKS} --check: whole CLI "
+        f"{took:.2f} s; sharded wall {run.wall_s:.2f} s, rank 0 peak "
+        f"{run.peak_mib:.1f} MiB, stages s {json.dumps(res.stage_s)}; one "
+        f"process wall {one.wall_s:.2f} s, stages s "
+        f"{json.dumps(one.result.stage_s)}; max |dpose| "
+        f"{run.one_process_dpose:.3e} m, bit for bit {run.bit_for_bit}; CFAR "
+        f"launches of the ranks {run.launches}, of the whole CLI {launches}")
+    _check_pin("mesh cli.sharded_replay (keyframes, loops, ATE m)",
+               (res.num_keyframes, res.carry.num_loops, round(run.ate_m, 4)),
+               SHARDED_EXPECTED)
+    _mesh_launches("mesh cli.sharded_replay", run.launches, MESH_RANKS)
+    _mesh_launches("mesh cli.sharded_replay with its check", launches,
+                   MESH_RANKS + 1)
+    return run.launches
+
+
+def mesh_kf_inputs(device, seed: int = 0):
+    """Phase 17d's keyframe axis at MESH_KF_SHAPE: tests/test_parallel.py's
+    case scaled to K keyframes of N points and a window of W, the first
+    two thirds of the keyframes candidates."""
+    import numpy as np
+    import torch
+
+    K, N, W = MESH_KF_SHAPE
+    r = np.random.default_rng(seed)
+    poses = np.stack([np.linspace(0, 600, K), 40 * np.sin(np.linspace(0, 6, K)),
+                      np.linspace(0, 12, K)], -1).astype(np.float32)
+    covs = np.tile(np.eye(3, dtype=np.float32)[None] * np.float32(1e-3),
+                   (K, 1, 1))
+    arrays = (r.uniform(0, 20, size=(K, N, 2)).astype(np.float32),
+              r.random((K, N)) > 0.2, poses, np.arange(K) < 2 * K // 3,
+              poses[K // 2:K // 2 + W], covs[:W], np.array([True, True, False]))
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def mesh_kf_calls(device, mesh=None) -> dict:
+    """The three keyframe-axis functions on ``mesh_kf_inputs``."""
+    import numpy as np
+    from sonar_slam_torch.parallel import keyframe_shard as tks
+
+    args = mesh_kf_inputs(device)
+    gate = (30.0, float(np.radians(65.0)))
+    return {"transform": tks.transform_clouds_sharded(args[0], args[2], mesh),
+            "gate": tks.nssm_gate_sharded(*args, *gate, mesh=mesh),
+            "select": tks.nssm_target_select_sharded(*args, *gate, mesh=mesh)}
+
+
+def mesh_kf_rank(mesh):
+    """Phase 17d on one rank; rank 0's results."""
+    out = mesh_kf_calls(mesh.device, mesh)
+    return out if mesh.rank == 0 else None
+
+
+def run_mesh_kf(dev) -> None:
+    """Phase 17d: ``transform_clouds_sharded``, ``nssm_gate_sharded`` and
+    ``nssm_target_select_sharded`` at MESH_KF_SHAPE over MESH_RANKS ranks,
+    exactly the unsharded calls on the card."""
+    import torch
+    from sonar_slam_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    got = spawn(mesh_kf_rank, MESH_RANKS, axis="kf", timeout_s=MESH_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    want = mesh_kf_calls(dev)
+    torch.cuda.synchronize()
+    equal = {name: _bit_equal(got[name], want[name]) for name in want}
+    sel = want["gate"][0]
+    log(f"mesh keyframe_shard at (K, N, W) {MESH_KF_SHAPE} over {MESH_RANKS} "
+        f"ranks ({took:.2f} s with the spawn): equal to the unsharded calls "
+        f"{equal}; {int(sel.sum())} of {sel.numel()} points gated, target "
+        f"{int(want['select'][2])}")
+    if not all(equal.values()):
+        raise RuntimeError(f"mesh keyframe_shard differs from the unsharded "
+                           f"calls: {equal}")
+
+
+def run_mesh(dev) -> tuple[dict, dict]:
+    """Phase 17: the device axis over MESH_RANKS ranks, each path against
+    its one-process run. Returns (sum-kernel launches, OS launches) by
+    path."""
+    import torch
+
+    by_path, by_path_os = {}, {}
+    for name, run in (("mesh_sweep", run_mesh_sweep),
+                      ("mesh_two_robot", run_mesh_two_robot),
+                      ("mesh_sharded_replay", run_mesh_sharded)):
+        launches = run(dev)
+        by_path[name] = launches["sum"]
+        by_path_os[name] = launches["os_mask"] + launches["os_select"]
+        torch.cuda.empty_cache()
+    run_mesh_kf(dev)
+    return by_path, by_path_os
 
 
 def run_survey_bag() -> int:
@@ -2672,10 +2875,10 @@ def main() -> int:
     # card: it times its vertical call
     by_path = {"dual": run_dual_lane(dev, entry)}
 
-    # 13, 14, 16) the parallel/ entry points, the accuracy CLIs and the
-    # parity lanes, each in a process of its own beside phases 4-9, 11-12
-    # and 15 (they read nothing of the other phases)
-    workers = [PhaseWorker(phase) for phase in ("13", "14", "16")]
+    # 13, 14, 16, 17) the parallel/ entry points, the accuracy CLIs, the
+    # parity lanes and the device axis, each in a process of its own beside
+    # phases 4-9, 11-12 and 15 (they read nothing of the other phases)
+    workers = [PhaseWorker(phase) for phase in ("13", "14", "16", "17")]
     try:
         kalman, lz4_rates, node_api = run_main_phases(
             bag, dev, dims, params_on, fcfg, entry, entry_os, by_path)
@@ -2847,7 +3050,7 @@ PHASE_RESULT = "launches by path: "
 
 
 class PhaseWorker:
-    """``python3 chip_smoke.py phase-<phase>`` (13, 14 or 16) in a process of
+    """``python3 chip_smoke.py phase-<phase>`` (13, 14, 16 or 17) in a process of
     its own (the kernels already built), its output kept in temporary files
     until :meth:`result`, which relays it and returns the phase's launches
     by path, or raises if the process failed. :meth:`stop` ends the process
@@ -2890,7 +3093,7 @@ class PhaseWorker:
 
 
 def phase_main(phase: str) -> int:
-    """Phase 13, 14 or 16 alone, on the card, in the process that ``main``
+    """Phase 13, 14, 16 or 17 alone, on the card, in the process that ``main``
     starts: prints the phase's launches by path as its last line."""
     import torch
 
@@ -2903,6 +3106,8 @@ def phase_main(phase: str) -> int:
         bag = simulate_bag(full_config(seed=0)[0])
     if phase == "13":
         by_path = run_parallel_entry_points(bag, dev)
+    elif phase == "17":
+        by_path = run_mesh(dev)
     elif phase == "16":
         launches = run_parity(bag, dev)
         by_path = ({"parity_lanes": launches["sum"]},
@@ -2919,5 +3124,6 @@ def phase_main(phase: str) -> int:
 if __name__ == "__main__":
     arg = " ".join(sys.argv[1:])
     sys.exit(run_survey_bag() if arg == "survey-bag" else
-             phase_main(arg[6:]) if arg in ("phase-13", "phase-14", "phase-16")
+             phase_main(arg[6:]) if arg in ("phase-13", "phase-14", "phase-16",
+                                            "phase-17")
              else main())

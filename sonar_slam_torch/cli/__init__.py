@@ -9,7 +9,13 @@
   two_robot_demo  two robots survey one basin; their graphs are merged on
                   PCM-vetted inter-robot loops (``parallel.multi_robot``)
   sharded_replay  replay at a large keyframe capacity (default 1024), with
-                  ``--check`` against the same replay at capacity 128
+                  ``--capacity-check`` against the same replay at
+                  capacity 128
+
+``sweep``, ``two_robot_demo`` and ``sharded_replay`` take ``--devices D``:
+D ranks, one process each (``parallel/mesh.py``), share the lanes, the
+robots or the refinement's fan-outs; ``sharded_replay --check`` holds that
+to the one-process replay.
 
 The accuracy harnesses, on bench.py's production configurations:
 

@@ -7,17 +7,23 @@ batched CFAR launch over the keyframe pings) runs once; then
 ``parallel.sweep_scan`` replays the keyframes under every lane of a 4 x 4 x
 4 grid (point noise x ICP odometry sigma scale x SSM rotation gate), wrapped
 to ``--lanes``. All lanes run as one lane-batched scan on one device, each
-keyframe step advancing every lane (``slam/lanes.py``; there is no mesh:
-``parallel/sweep.py``), so ``devices`` is 1. The sweep runs twice:
+keyframe step advancing every lane (``slam/lanes.py``). With ``--devices D``
+(D > 1, dividing ``--lanes``) D ranks each run the preprocessing and scan a
+block of ``--lanes / D`` lanes over a mesh (``parallel/mesh.py``; ranks
+share cards where D exceeds the cards, the gathers go over gloo), as the
+script shards its lanes over a config mesh. The sweep runs twice:
 ``compile_s`` is the first run's wall time and ``wall_s`` the second's, each
 ended by a device sync. Prints (and with ``--out`` writes) the script's
-JSON report; on a card it also logs the peak device memory to stderr.
+JSON report, with ``devices`` and, over ranks, ``ranks_per_card`` (null
+for CPU ranks); on a card it also logs each rank's peak device memory to
+stderr.
 
 It runs on the CUDA card unless ``--cpu`` is given; without a card it exits
 with an error rather than run on the CPU.
 
 Usage:
   python -m sonar_slam_torch.cli.sweep --simulate --lanes 64 --out sweep.json
+  python -m sonar_slam_torch.cli.sweep --simulate --lanes 64 --devices 2
   python -m sonar_slam_torch.cli.sweep --file survey.npz --lanes 16 --cpu
 """
 
@@ -46,6 +52,8 @@ class SweepRun(NamedTuple):
     carry: object  # SlamCarry stacked over the lanes (the second sweep's)
     ates: list  # each lane's ATE, m
     truth: object  # the keyframes' true poses (keyframes, 3)
+    rank_peak_mib: list | None  # each rank's peak device memory (card only)
+    spawn_s: float | None  # from the spawn until every rank was ready
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -56,6 +64,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--file", help=".npz bag bundle")
     ap.add_argument("--simulate", action="store_true")
     ap.add_argument("--lanes", type=int, default=64)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks to shard the lanes over, one process each "
+                         "(ranks share cards where there are more ranks "
+                         "than cards)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the default is the CUDA card)")
     ap.add_argument("--out", default=None)
@@ -168,8 +180,25 @@ def sweep_inputs(device, lanes: int, duration: float = 90.0, file=None,
 def main(argv=None) -> SweepRun:
     args = _parser().parse_args(argv)
     device = device_from_args(args.cpu, "sweep")
+    if args.devices > 1:
+        from ..parallel.mesh import check_divisible, spawn
 
+        check_divisible(args.lanes, args.devices, "--lanes")
+        return spawn(_sweep_rank, args.devices, args, time.time(),
+                     cpu=args.cpu)
+    return _sweep(args, device)
+
+
+def _sweep_rank(mesh, args, spawned_at: float):
+    """One rank of ``--devices``: the whole sweep over its block of lanes;
+    rank 0's SweepRun (the others return None)."""
+    run = _sweep(args, mesh.device, mesh, time.time() - spawned_at)
+    return run if mesh.rank == 0 else None
+
+
+def _sweep(args, device, mesh=None, ready_s: float = 0.0) -> SweepRun:
     from ..parallel import sweep_scan
+    from ..parallel.mesh import gather, ranks_per_card
     from ..pipeline import ate_rmse
 
     bag, dims, combos, stacked, frames, kf_idx = sweep_inputs(
@@ -179,13 +208,20 @@ def main(argv=None) -> SweepRun:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
-    sweep_scan(frames, stacked, dims)
+    sweep_scan(frames, stacked, dims, mesh)
     sync(device)
     compile_s = time.time() - t0
     t0 = time.time()
-    carry, _ = sweep_scan(frames, stacked, dims)
+    carry, _ = sweep_scan(frames, stacked, dims, mesh)
     sync(device)
     wall = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated(device) / 2**20
+            if device.type == "cuda" else float("nan"))
+    per_rank = torch.tensor([[peak, ready_s]], dtype=torch.float64)
+    if mesh is not None:
+        per_rank = gather(per_rank, mesh)
+        if mesh.rank != 0:
+            return None
 
     nk = int(carry.num_kf[0])
     truth = bag.true_pose_at_ping[kf_idx][:nk]
@@ -195,7 +231,9 @@ def main(argv=None) -> SweepRun:
     best = int(np.argmin(ates))
     report = {
         "lanes": args.lanes,
-        "devices": 1,
+        "devices": args.devices,
+        **({"ranks_per_card": ranks_per_card(args.devices, args.cpu)}
+           if mesh is not None else {}),
         "keyframes": nk,
         "wall_s": round(wall, 3),
         "compile_s": round(compile_s, 1),
@@ -211,14 +249,18 @@ def main(argv=None) -> SweepRun:
         "loops_per_lane": [int(x) for x in loops],
     }
     print(json.dumps(report, indent=2))
+    rank_peak = None
     if device.type == "cuda":
-        print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f}"
-              f" MiB ({torch.cuda.get_device_name(device)})", file=sys.stderr)
+        rank_peak = [round(float(x), 1) for x in per_rank[:, 0]]
+        print(f"peak device memory a rank {rank_peak} MiB "
+              f"({torch.cuda.get_device_name(device)})", file=sys.stderr)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2)
     return SweepRun(report=report, frames=frames, params=stacked, dims=dims,
-                    carry=carry, ates=ates, truth=truth)
+                    carry=carry, ates=ates, truth=truth,
+                    rank_peak_mib=rank_peak,
+                    spawn_s=float(per_rank[:, 1].max()) if mesh else None)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,12 @@ Counterpart of ``scripts/two_robot_demo.py``:
 1. two robots survey the same basin on opposite phases of the loop (shared
    world, independent sensor noise),
 2. each runs the complete SLAM scan independently (``multi_robot_scan``:
-   each robot a lane of one lane-batched scan on one device, where the
-   JAX package gives each its own mesh lane; the line that reports it ends
-   with the scan's ``wall_s``, host seconds ended by a device sync),
+   each robot a lane of one lane-batched scan on one device; with
+   ``--devices 2`` one robot a rank, each rank its own process and card,
+   ranks sharing cards where there are fewer, the carries all-gathered
+   over gloo, as the JAX package gives each robot its own mesh lane; the
+   line that reports it ends with the scan's ``wall_s``, host seconds
+   ended by a device sync),
 3. candidate keyframe summaries are exchanged (the ISAM2Update analog),
 4. all-pairs NSSM-style registration proposes inter-robot transforms (the
    64 pairs' Sobol searches in one batched search, their ICPs in one batch),
@@ -21,7 +24,7 @@ robot), on the CPU its plain version. ``matplotlib`` is imported only for
 ``--plot``. It runs on the CUDA card unless ``--cpu`` is given; without a
 card it exits with an error rather than run on the CPU.
 
-Usage: python -m sonar_slam_torch.cli.two_robot_demo [--duration 90] [--plot out.png] [--cpu]
+Usage: python -m sonar_slam_torch.cli.two_robot_demo [--duration 90] [--plot out.png] [--devices 2] [--cpu]
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ class TwoRobotRun(NamedTuple):
     ate_joint_m: float  # merged, after one joint SE(2) alignment
     merged_poses: np.ndarray  # (nk_a + nk_b, 3)
     scan_wall_s: float  # the batched two-robot scan, ended by a device sync
+    carries: object  # the robots' scanned SlamCarry, stacked on the robot axis
 
 
 def dr_start_pose(bag, device):
@@ -93,21 +97,43 @@ def main(argv=None) -> TwoRobotRun:
     ap.add_argument("--duration", type=float, default=90.0)
     ap.add_argument("--plot", default="")
     ap.add_argument("--min-pcm", type=int, default=2)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks to scan the robots on, one process each "
+                         "(ranks share cards where there are more ranks "
+                         "than cards)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the default is the CUDA card)")
     args = ap.parse_args(argv)
     device = device_from_args(args.cpu, "two-robot demo")
+    if args.devices > 1:
+        from ..parallel.mesh import check_divisible, spawn
 
+        check_divisible(2, args.devices, "the robot count")
+        return spawn(_demo_rank, args.devices, args, cpu=args.cpu,
+                     axis="robot")
+    return _demo(args, device)
+
+
+def _demo_rank(mesh, args):
+    """One rank of ``--devices``: its robots' scans, then (rank 0) the
+    merge; rank 0's TwoRobotRun (the others return None)."""
+    return _demo(args, mesh.device, mesh)
+
+
+def _demo(args, device, mesh=None):
     from ..parallel.multi_robot import multi_robot_scan
 
     bags, dims, params, built, frames2 = robot_inputs(device, args.duration)
 
-    # 1-2) per-robot SLAM, both robots as lanes of one batched scan
+    # 1-2) per-robot SLAM, both robots as lanes of one batched scan (with a
+    # mesh, each rank's robots, gathered)
     sync(device)
     t0 = time.perf_counter()
-    carries, _ = multi_robot_scan(frames2, params, dims)
+    carries, _ = multi_robot_scan(frames2, params, dims, mesh)
     sync(device)
     wall = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return None
     nk = [int(carries.num_kf[r]) for r in range(2)]
     loops = [int(carries.num_loops[r]) for r in range(2)]
     print(f"robot surveys done: keyframes={nk}, loops={loops}, "
@@ -335,7 +361,7 @@ def merge_surveys(bags, built, carries, device, min_pcm: int = 2,
     return TwoRobotRun(keyframes=nk, loops=loops, proposals=n_prop,
                        accepted=int(np.sum(accept)), clique=int(size),
                        ate_joint_m=ate_joint, merged_poses=poses,
-                       scan_wall_s=0.0)
+                       scan_wall_s=0.0, carries=carries)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,12 @@ Counterpart of ``sonar_slam_tpu/parallel/multi_robot.py``. The reference
 reserves hooks for multi-robot SLAM (the dormant ``ISAM2Update`` message,
 ``rov_id`` frame prefixes); the JAX package maps each robot to a mesh lane
 and exchanges compact keyframe summaries (pose, covariance, downsampled
-cloud) with ``all_gather``. One card has no mesh: here every robot is a
-lane of one lane-batched scan on one device (``slam/lanes.py``, each lane
-with its own keyframe stream, as the JAX package's lanes are), and the
-"exchange" is the stacked summary itself. Inter-robot loop closures then
+cloud) with ``all_gather``. Here every robot is a lane of one lane-batched
+scan on one device (``slam/lanes.py``, each lane with its own keyframe
+stream, as the JAX package's lanes are), and the "exchange" is the stacked
+summary itself; with a mesh (``parallel/mesh.py``) each rank scans its
+contiguous block of robots so, and the carries and the summaries are
+all-gathered over the ranks. Inter-robot loop closures then
 run like NSSM: the P·Q pairs' Sobol global initializations in one batched
 search and their ICPs in one batch, vetted by PCM, merged into one graph.
 Each robot lane, and each pair's search, equals its lone call (bit for bit
@@ -32,6 +34,7 @@ from ..graph.pcm import pcm_select
 from ..slam.core import KeyframeInput, slam_scan
 from ..slam.lanes import slam_scan_lanes
 from ..slam.scan_matching import global_initialize, global_initialize_lanes
+from .mesh import Mesh, check_axis, check_divisible, gather, shard
 from .sweep import stack_lanes, stack_params
 
 
@@ -46,10 +49,17 @@ class KeyframeSummary(NamedTuple):
     pmask: torch.Tensor  # (N,)
 
 
-def exchange_keyframes(summary: KeyframeSummary) -> KeyframeSummary:
-    """Every robot's latest keyframe summary, gathered: on one device the
-    gathered table (R, ...) is the stacked summary itself, returned as is."""
-    return summary
+def exchange_keyframes(summary: KeyframeSummary, mesh: Mesh | None = None,
+                       axis: str | None = None) -> KeyframeSummary:
+    """Every robot's latest keyframe summary, gathered. Without a mesh the
+    gathered table (R, ...) is the stacked summary itself, returned as is.
+    With ``mesh`` (``axis``: its axis, or None for it) each rank passes the
+    summaries of the robots it owns, its block (R / size, ...) of the robot
+    axis, and every rank gets the whole table (R, ...) in rank order."""
+    if mesh is None:
+        return summary
+    check_axis(mesh, axis)
+    return gather(summary, mesh)
 
 
 def merge_interrobot_factors(own: KeyframeSummary, gathered: KeyframeSummary,
@@ -79,18 +89,29 @@ def merge_interrobot_factors(own: KeyframeSummary, gathered: KeyframeSummary,
 # ----------------------------------------------------------------------
 
 
-def multi_robot_scan(frames_stacked: KeyframeInput, params, dims):
+def multi_robot_scan(frames_stacked: KeyframeInput, params, dims,
+                     mesh: Mesh | None = None, axis: str | None = None):
     """Run every robot's full SLAM scan as a lane of one lane-batched scan.
 
     ``frames_stacked``: a KeyframeInput with a leading robot axis R, each
     robot's own keyframe stream (its own keyframe count and valid slots).
     Each robot runs the complete SSM/NSSM/PCM scan independently under the
     shared ``params`` (robots don't communicate during the survey; exchange
-    happens afterwards). Returns (carries, outputs) stacked on the robot
-    axis, as ``sweep_scan`` stacks its lanes: robot r's equal to
-    ``slam_scan`` of its own stream."""
+    happens afterwards). With ``mesh`` (``axis``: its axis, or None for it;
+    R divisible by its size) every rank passes all R streams, scans its
+    contiguous block of robots, and the carries and outputs are
+    all-gathered. Returns (carries, outputs) stacked on the robot axis, as
+    ``sweep_scan`` stacks its lanes: robot r's equal to ``slam_scan`` of
+    its own stream."""
     R = frames_stacked.points.shape[0]
-    return slam_scan_lanes(frames_stacked, stack_params([params] * R), dims)
+    if mesh is None:
+        return slam_scan_lanes(frames_stacked, stack_params([params] * R),
+                               dims)
+    check_axis(mesh, axis)
+    check_divisible(R, mesh.size, "the robot count")
+    lanes = stack_params([params] * (R // mesh.size))
+    return gather(slam_scan_lanes(shard(frames_stacked, mesh), lanes, dims),
+                  mesh)
 
 
 def multi_robot_scan_loop(frames_stacked: KeyframeInput, params, dims):

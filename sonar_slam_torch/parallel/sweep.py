@@ -2,15 +2,16 @@
 ``SlamParams`` lanes.
 
 Counterpart of ``sonar_slam_tpu/parallel/sweep.py``, which ``vmap``s its
-traced ``slam_scan`` over the lanes (and may shard the lane axis over a
-device mesh). Here ``sweep_scan`` runs every lane through each keyframe
+traced ``slam_scan`` over the lanes and may shard the lane axis over a
+device mesh. Here ``sweep_scan`` runs every lane through each keyframe
 step together, as one lane-batched scan on the frames' device
 (``slam/lanes.py``): every ``SlamParams`` field is a (B, ...) tensor, the
 state carries a leading lane axis, and the host reads only which lanes
 are still going. Lane i is ``slam_scan`` of lane i's parameters alone: bit
 for bit on a CUDA card, within rounding on the CPU (``slam/lanes.py``).
+With a mesh (``make_config_mesh``, ``parallel/mesh.py``) each rank scans
+its contiguous block of lanes so, and the results are all-gathered.
 ``sweep_scan_loop`` is the plain version, the lanes one after another.
-One card has no mesh: ``make_config_mesh`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ import torch
 
 from ..slam.core import KeyframeInput, SlamDims, SlamParams, slam_scan
 from ..slam.lanes import slam_scan_lanes
+# make_config_mesh is defined with the rank machinery and exported from here,
+# where the JAX package defines it
+from .mesh import (Mesh, check_axis, check_divisible, gather,  # noqa: F401
+                   make_config_mesh, shard)
 
 
 def stack_lanes(trees: list, device):
@@ -86,14 +91,24 @@ def lane_params(stacked: SlamParams, i: int) -> SlamParams:
 
 
 def sweep_scan(frames: KeyframeInput, stacked_params: SlamParams,
-               dims: SlamDims):
+               dims: SlamDims, mesh: Mesh | None = None, axis: str = "config"):
     """Replay the same keyframe stream under B parameter lanes at once.
 
     frames: un-batched KeyframeInput (shared across lanes).
     stacked_params: SlamParams with leading lane axis B (``stack_params``).
-    Returns (carry, outputs) with every leaf stacked on a leading lane axis,
-    as ``stack_lanes`` stacks the lanes' lone ``slam_scan`` results."""
-    return slam_scan_lanes(frames, stacked_params, dims)
+    With ``mesh`` (whose axis is ``axis``; B divisible by its size) every
+    rank passes the same frames and params, scans its contiguous block of
+    B / size lanes, and the carry and outputs are all-gathered in lane
+    order. Returns (carry, outputs) with every leaf stacked on a leading
+    lane axis, as ``stack_lanes`` stacks the lanes' lone ``slam_scan``
+    results."""
+    if mesh is None:
+        return slam_scan_lanes(frames, stacked_params, dims)
+    check_axis(mesh, axis)
+    check_divisible(stacked_params.prior_sigmas.shape[0], mesh.size,
+                    "the sweep's lane count")
+    return gather(slam_scan_lanes(frames, shard(stacked_params, mesh), dims),
+                  mesh)
 
 
 def sweep_scan_loop(frames: KeyframeInput, stacked_params: SlamParams,

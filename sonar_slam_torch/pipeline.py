@@ -65,7 +65,7 @@ from .precision import pin_fp32
 from .slam.core import KeyframeInput, SlamDims, SlamParams, select_keyframes, slam_scan
 from .slam.frontend import FeatureConfig, FeatureExtractor, corroborate
 from .slam.dual_sonar import ElevationSpec, fuse_frames_global
-from .slam.refine import RefineParams, refine_loops
+from .slam.refine import RefineParams, check_mesh_dims, refine_loops
 
 
 class ReplayResult(NamedTuple):
@@ -185,6 +185,7 @@ def replay(
     kalman_config: KalmanConfig | None = None,
     use_vertical: bool = False,
     refine_params: RefineParams | None = None,
+    mesh=None,
 ) -> ReplayResult:
     """Replay ``bag`` on ``device`` (a torch device or its name).
 
@@ -192,9 +193,14 @@ def replay(
     defaults to an identity mount, latitude 0, a 50 Hz gyro and roll0 0;
     ``kalman`` to ``default_kalman_config`` and refuses DR-basis aggregation,
     whose basis integrals only dead reckoning gives. ``refine_params``
-    defaults to ``RefineParams.default``."""
+    defaults to ``RefineParams.default``. ``mesh`` (``parallel.mesh.Mesh``,
+    called on every rank with its device) shards the refinement's
+    registration fan-outs over the ranks (``refine_loops``); everything
+    before runs replicated on every rank."""
     if use_vertical and bag.vertical_images is None:
         raise ValueError("bag has no vertical sonar stream")
+    if mesh is not None:
+        check_mesh_dims(dims, mesh.size)
     pin_fp32()
     dev = torch.device(device)
     stage_s = {}
@@ -265,7 +271,7 @@ def replay(
     if dims.refine_iters > 0:
         t0 = time.perf_counter()
         rp = refine_params if refine_params is not None else RefineParams.default(dev)
-        carry = refine_loops(carry, params, rp, dims, kf_basis)
+        carry = refine_loops(carry, params, rp, dims, kf_basis, mesh=mesh)
         _sync(dev)
         stage_s["refine"] = time.perf_counter() - t0
 

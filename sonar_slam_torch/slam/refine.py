@@ -32,8 +32,15 @@ What differs from the JAX version, and why:
 * The loop count is a host integer, so the sweep, the prune and the
   compaction each read one value back; the Gauss-Newton early exit reads
   one per iteration.
-* No ``mesh`` argument: the port runs on one card, so there is nothing to
-  shard the lanes over.
+* With a mesh (``parallel/mesh.py``, the JAX version's ``shard_map`` in
+  ``_lane_map``) each fan-out's live lanes are padded to a multiple of the
+  mesh size with copies of lane 0; every rank registers its contiguous
+  block of them against the carry it holds (every rank holds the same
+  carry), and the per-lane (ok, z, cov) are all-gathered and cut back to
+  the live lanes (:func:`_lane_map`). Each fan-out first all-gathers every
+  rank's lane count and a checksum of its lane indices, and raises on every
+  rank where they differ, so that ranks whose carries have parted fail
+  instead of mixing blocks registered against different loops.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 from ..cloud.icp import censi_covariance, icp_pairs
 from ..geometry import se2_between, se2_inverse, se2_transform_points
 from ..graph.factor_graph import cov_to_sqrt_info, optimize
+from ..parallel.mesh import Mesh, check_divisible, gather, shard
 from ..precision import pin_fp32
 from .core import SlamCarry, SlamDims, SlamParams, _aggregate_windows, conf_weight, scaled_dr_between
 from .scan_matching import apply_covariance_floor, localize_covariance
@@ -157,6 +165,49 @@ def _append_factors(graph, en, i, j, z, sq, robust: bool):
     return graph, rank
 
 
+def check_mesh_dims(dims: SlamDims, size: int) -> None:
+    """Raise ValueError unless a mesh of ``size`` ranks divides the fan-outs'
+    capacities (``max_loops``, ``max_keyframes``), as the JAX version
+    requires."""
+    check_divisible(dims.max_loops, size, "SlamDims.max_loops")
+    check_divisible(dims.max_keyframes, size, "SlamDims.max_keyframes")
+
+
+def _check_same_lanes(lanes: tuple, mesh: Mesh) -> None:
+    """Raise RuntimeError on every rank unless all ranks hold the same lanes
+    (the same count L and the same indices, compared by a checksum): each
+    rank selects its fan-out's lanes from its own carry, and blocks
+    registered against different lanes must never be gathered together."""
+    h = torch.zeros((), dtype=torch.int64)
+    for t, x in enumerate(lanes):
+        v = x.detach().cpu().reshape(-1).to(torch.int64)
+        w = torch.arange(1, v.numel() + 1, dtype=torch.int64) * 2654435761
+        h = h + torch.sum((v + 1) * (w + t))
+    got = gather(torch.stack([torch.tensor(lanes[0].shape[0]), h])[None],
+                 mesh)
+    if not torch.equal(got, got[:1].expand_as(got)):
+        raise RuntimeError(
+            "the ranks' refinement lanes disagree (count, checksum by rank: "
+            f"{got.tolist()}): every rank must hold the same carry")
+
+
+def _lane_map(fn, lanes: tuple, mesh: Mesh | None):
+    """``fn(*lanes)`` over the leading lane axis of the index tensors
+    ``lanes``, returning a tuple of per-lane tensors. With ``mesh`` the
+    ranks first check that they hold the same lanes
+    (:func:`_check_same_lanes`), the L lanes are padded to the next multiple
+    of its size with copies of lane 0, each rank runs ``fn`` on its
+    contiguous block, and the results are gathered and cut back to L."""
+    if mesh is None:
+        return fn(*lanes)
+    L = lanes[0].shape[0]
+    _check_same_lanes(lanes, mesh)
+    pad = -L % mesh.size
+    lanes = tuple(torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+                  for x in lanes)
+    return tuple(x[:L] for x in gather(fn(*shard(lanes, mesh)), mesh))
+
+
 def _register_pair(carry: SlamCarry, i, j, params: SlamParams,
                    rp: RefineParams, dims: SlamDims):
     """Windowed re-registration of loops (i[l], j[l]) from the converged
@@ -207,13 +258,15 @@ def _register_pair(carry: SlamCarry, i, j, params: SlamParams,
     return ok & _finite(z, cov), z, cov
 
 
-def _remeasure(carry: SlamCarry, params, rp, dims: SlamDims) -> SlamCarry:
+def _remeasure(carry: SlamCarry, params, rp, dims: SlamDims,
+               mesh: Mesh | None = None) -> SlamCarry:
     """Re-register every logged loop; replace factor measurements in place."""
     nl = min(carry.num_loops, dims.max_loops)
     if nl == 0:
         return carry
-    ok, z, cov = _register_pair(carry, carry.loops_i[:nl], carry.loops_j[:nl],
-                                params, rp, dims)
+    ok, z, cov = _lane_map(
+        lambda i, j: _register_pair(carry, i, j, params, rp, dims),
+        (carry.loops_i[:nl], carry.loops_j[:nl]), mesh)
     graph = _set_factors(carry.graph, carry.loops_slot[:nl], ok, z,
                          cov_to_sqrt_info(cov), rp.robust)
     loops_tf = carry.loops_tf.clone()
@@ -230,7 +283,7 @@ def _loops_between(carry: SlamCarry) -> torch.Tensor:
 
 
 def _remeasure_moved(carry: SlamCarry, reg_between: torch.Tensor, params, rp,
-                     dims: SlamDims):
+                     dims: SlamDims, mesh: Mesh | None = None):
     """Incremental re-measurement: re-register only the loops whose endpoint
     relative pose moved beyond the gate since their last registration, the
     ``max_loops // 2`` that moved most. Returns (carry, reg_between) with
@@ -252,8 +305,9 @@ def _remeasure_moved(carry: SlamCarry, reg_between: torch.Tensor, params, rp,
     if n_act == 0:
         return carry, reg_between
     sel = sel[:n_act]
-    ok, z, cov = _register_pair(carry, carry.loops_i[sel], carry.loops_j[sel],
-                                params, rp, dims)
+    ok, z, cov = _lane_map(
+        lambda i, j: _register_pair(carry, i, j, params, rp, dims),
+        (carry.loops_i[sel], carry.loops_j[sel]), mesh)
     graph = _set_factors(carry.graph, carry.loops_slot[sel], ok, z,
                          cov_to_sqrt_info(cov), rp.robust)
     loops_tf = _drop_set(carry.loops_tf, sel, z, ok)
@@ -275,7 +329,8 @@ def _covisibility(carry: SlamCarry, dims: SlamDims) -> torch.Tensor:
     return torch.minimum(C, C.T)
 
 
-def _densify_chain(carry: SlamCarry, params, rp, dims: SlamDims):
+def _densify_chain(carry: SlamCarry, params, rp, dims: SlamDims,
+                   mesh: Mesh | None = None):
     """Re-register every consecutive keyframe pair from the converged poses;
     replace the in-scan SSM measurement where one exists, add a chain factor
     where SSM fell back to odometry. Returns (carry, ok (K,), z (K, 3));
@@ -287,47 +342,52 @@ def _densify_chain(carry: SlamCarry, params, rp, dims: SlamDims):
     z_all = torch.zeros((K, 3), device=dev)
     if carry.num_kf < 2:
         return carry, ok_all, z_all
-    k = torch.arange(1, carry.num_kf, device=dev)
-    prev = k - 1
-    guess = se2_between(carry.poses[prev], carry.poses[k])
-    rr = icp_pairs(carry.points[k], carry.pmasks[k], carry.points[prev],
-                   carry.pmasks[prev], guess, dims.icp,
-                   conf_weight(carry.pconf[k], params),
-                   conf_weight(carry.pconf[prev], params))
-    dd = se2_between(guess, rr.pose)
-    # cross-check against the scale-corrected raw DR delta over the interval
     s = torch.exp(carry.graph.log_scale)
-    if dims.aggregate_with_dr_basis:
-        zd = scaled_dr_between(carry, prev, k, s)
-    else:
-        zd = se2_between(carry.dr_poses[prev], carry.dr_poses[k])
-        zd = torch.cat([zd[:, :2] * s, zd[:, 2:]], dim=-1)
-    dr_dev_t = torch.linalg.vector_norm(rr.pose[:, :2] - zd[:, :2], dim=-1)
-    dr_dev_r = torch.abs(torch.remainder(rr.pose[:, 2] - zd[:, 2] + math.pi,
-                                         2 * math.pi) - math.pi)
-    dr_ok = ((dr_dev_t <= rp.chain_dr_max_dt)
-             & (dr_dev_r <= rp.chain_dr_max_dr))
-    if rp.chain_dr_max_dt <= 0:
-        dr_ok = torch.ones_like(dr_ok)
-    ok = (rr.ok & dr_ok & (rr.inliers >= rp.min_inliers)
-          & (_norm2(dd) <= dims.pair_refine_max_dt)
-          & (torch.abs(dd[:, 2]) <= dims.pair_refine_max_dr))
-    cov = localize_covariance(censi_covariance(rr.info, rr.mse, rr.pose),
-                              rr.pose)
-    cov, _ = apply_covariance_floor(cov, rp.chain_floor_sigmas)
-    ok = ok & _finite(rr.pose, cov)
+
+    def one(k):
+        prev = k - 1
+        guess = se2_between(carry.poses[prev], carry.poses[k])
+        rr = icp_pairs(carry.points[k], carry.pmasks[k], carry.points[prev],
+                       carry.pmasks[prev], guess, dims.icp,
+                       conf_weight(carry.pconf[k], params),
+                       conf_weight(carry.pconf[prev], params))
+        dd = se2_between(guess, rr.pose)
+        # cross-check against the scale-corrected raw DR delta over the
+        # interval
+        if dims.aggregate_with_dr_basis:
+            zd = scaled_dr_between(carry, prev, k, s)
+        else:
+            zd = se2_between(carry.dr_poses[prev], carry.dr_poses[k])
+            zd = torch.cat([zd[:, :2] * s, zd[:, 2:]], dim=-1)
+        dr_dev_t = torch.linalg.vector_norm(rr.pose[:, :2] - zd[:, :2],
+                                            dim=-1)
+        dr_dev_r = torch.abs(torch.remainder(
+            rr.pose[:, 2] - zd[:, 2] + math.pi, 2 * math.pi) - math.pi)
+        dr_ok = ((dr_dev_t <= rp.chain_dr_max_dt)
+                 & (dr_dev_r <= rp.chain_dr_max_dr))
+        if rp.chain_dr_max_dt <= 0:
+            dr_ok = torch.ones_like(dr_ok)
+        ok = (rr.ok & dr_ok & (rr.inliers >= rp.min_inliers)
+              & (_norm2(dd) <= dims.pair_refine_max_dt)
+              & (torch.abs(dd[:, 2]) <= dims.pair_refine_max_dr))
+        cov = localize_covariance(censi_covariance(rr.info, rr.mse, rr.pose),
+                                  rr.pose)
+        cov, _ = apply_covariance_floor(cov, rp.chain_floor_sigmas)
+        return ok & _finite(rr.pose, cov), rr.pose, cov
+
+    k = torch.arange(1, carry.num_kf, device=dev)
+    ok, z, cov = _lane_map(one, (k,), mesh)
     sq = cov_to_sqrt_info(cov)
 
     # replace in place where an in-scan SSM factor exists, append otherwise
     ssm_slot = carry.ssm_slot[k]
     have_ssm = ssm_slot >= 0
-    graph = _set_factors(carry.graph, ssm_slot, ok & have_ssm, rr.pose, sq,
+    graph = _set_factors(carry.graph, ssm_slot, ok & have_ssm, z, sq,
                          rp.robust)
-    graph, _ = _append_factors(graph, ok & ~have_ssm, prev, k, rr.pose, sq,
+    graph, _ = _append_factors(graph, ok & ~have_ssm, k - 1, k, z, sq,
                                rp.robust)
     ok_all[1: carry.num_kf] = ok
-    z_all[1: carry.num_kf] = torch.where(ok[:, None], rr.pose,
-                                         torch.zeros_like(rr.pose))
+    z_all[1: carry.num_kf] = torch.where(ok[:, None], z, torch.zeros_like(z))
     return carry._replace(graph=graph), ok_all, z_all
 
 
@@ -419,7 +479,8 @@ def _anchor_scale_from_chain(carry: SlamCarry, chain_ok, chain_z, rp,
                                            log_scale=anchor))
 
 
-def _sweep(carry: SlamCarry, params, rp, dims: SlamDims) -> SlamCarry:
+def _sweep(carry: SlamCarry, params, rp, dims: SlamDims,
+           mesh: Mesh | None = None) -> SlamCarry:
     """One single-frame registration per source keyframe against its most
     co-visible eligible targets; confident, consistent fits become new loop
     factors, appended in lane order up to ``max_loops``."""
@@ -459,37 +520,41 @@ def _sweep(carry: SlamCarry, params, rp, dims: SlamDims) -> SlamCarry:
     if lanes.numel() == 0:
         return carry
     j, i = src_of[lanes], tgt_of[lanes]
-    guess = se2_between(carry.poses[i], carry.poses[j])
-    rr = icp_pairs(carry.points[j], carry.pmasks[j], carry.points[i],
-                   carry.pmasks[i], guess, dims.icp,
-                   conf_weight(carry.pconf[j], params),
-                   conf_weight(carry.pconf[i], params))
-    dd = se2_between(guess, rr.pose)
-    ok = (rr.ok & (rr.inliers >= rp.sweep_min_inliers)
-          & (_norm2(dd) <= rp.sweep_max_dt)
-          & (torch.abs(dd[:, 2]) <= rp.sweep_max_dr))
-    cov = localize_covariance(censi_covariance(rr.info, rr.mse, rr.pose),
-                              rr.pose)
-    cov, _ = apply_covariance_floor(cov, rp.sweep_floor_sigmas)
-    if rp.sweep_cov_inlier_ref > 0:
-        # inlier-count de-weighting of low-support fits
-        s = torch.clamp(rp.sweep_cov_inlier_ref
-                        / torch.clamp(rr.inliers, min=1), 1.0, 4.0)
-        cov = cov * (s * s)[:, None, None]
-    ok = ok & _finite(rr.pose, cov)
+
+    def one(j, i):
+        guess = se2_between(carry.poses[i], carry.poses[j])
+        rr = icp_pairs(carry.points[j], carry.pmasks[j], carry.points[i],
+                       carry.pmasks[i], guess, dims.icp,
+                       conf_weight(carry.pconf[j], params),
+                       conf_weight(carry.pconf[i], params))
+        dd = se2_between(guess, rr.pose)
+        ok = (rr.ok & (rr.inliers >= rp.sweep_min_inliers)
+              & (_norm2(dd) <= rp.sweep_max_dt)
+              & (torch.abs(dd[:, 2]) <= rp.sweep_max_dr))
+        cov = localize_covariance(censi_covariance(rr.info, rr.mse, rr.pose),
+                                  rr.pose)
+        cov, _ = apply_covariance_floor(cov, rp.sweep_floor_sigmas)
+        if rp.sweep_cov_inlier_ref > 0:
+            # inlier-count de-weighting of low-support fits
+            s = torch.clamp(rp.sweep_cov_inlier_ref
+                            / torch.clamp(rr.inliers, min=1), 1.0, 4.0)
+            cov = cov * (s * s)[:, None, None]
+        return ok & _finite(rr.pose, cov), rr.pose, cov
+
+    ok, z, cov = _lane_map(one, (j, i), mesh)
 
     # the capacity cut: the first (max_loops - num_loops) accepted lanes
     rank = torch.cumsum(ok.to(torch.int64), dim=0) - 1
     en = ok & (carry.num_loops + rank < dims.max_loops)
     fslot0 = carry.graph.num_factors
-    graph, rank = _append_factors(carry.graph, en, i, j, rr.pose,
+    graph, rank = _append_factors(carry.graph, en, i, j, z,
                                   cov_to_sqrt_info(cov), rp.robust)
     slot = carry.num_loops + rank
     c = carry._replace(
         graph=graph,
         loops_i=_drop_set(carry.loops_i, slot, i, en),
         loops_j=_drop_set(carry.loops_j, slot, j, en),
-        loops_tf=_drop_set(carry.loops_tf, slot, rr.pose, en),
+        loops_tf=_drop_set(carry.loops_tf, slot, z, en),
         loops_slot=_drop_set(carry.loops_slot, slot, fslot0 + rank, en),
     )
     return c._replace(num_loops=carry.num_loops + int(torch.sum(en)))
@@ -521,15 +586,27 @@ def _prune_loops(carry: SlamCarry, rp, dims: SlamDims) -> SlamCarry:
 
 
 def refine_loops(carry: SlamCarry, params: SlamParams, rp: RefineParams,
-                 dims: SlamDims, scale_basis=None) -> SlamCarry:
+                 dims: SlamDims, scale_basis=None,
+                 mesh: Mesh | None = None) -> SlamCarry:
     """Iterated post-convergence refinement: re-measure -> optimize (-> chain
     -> optimize on the first pass) -> sweep -> optimize, ``dims.refine_iters``
     times, then prune -> optimize (and a final sweep and prune when
     ``dims.refine_final_sweep``). ``scale_basis`` (K, 2, 2) holds the DVL
     basis integrals at the keyframes. A no-op when ``refine_iters == 0``.
 
-    The JAX version's ``mesh`` argument (sharding the fan-outs over devices)
-    has no counterpart: the port runs on one card."""
+    With ``mesh`` (``parallel/mesh.py``; ``max_loops`` and ``max_keyframes``
+    divisible by its size, as the JAX version requires) every rank calls
+    this on the same carry, and each registration fan-out (the loops
+    re-measured, the chain pairs, the sweep pairs) is split over the ranks.
+    Only the live lanes register, as without a mesh: the L valid (or moved)
+    loops, the num_kf - 1 chain pairs, the sweep pairs with a target. They
+    are padded to the next multiple of the mesh size with copies of the
+    first, each rank registers its contiguous block, and the per-lane
+    (ok, z, cov) are gathered and cut back to L; every rank then holds the
+    same refined carry. A fan-out whose lanes differ between ranks raises
+    RuntimeError on every rank."""
+    if mesh is not None:
+        check_mesh_dims(dims, mesh.size)
     if dims.refine_iters <= 0:
         return carry
     pin_fp32()
@@ -551,14 +628,14 @@ def refine_loops(carry: SlamCarry, params: SlamParams, rp: RefineParams,
     reg_between = _loops_between(carry)
     for it in range(dims.refine_iters):
         if it == 0 or not dims.refine_incremental:
-            carry = _remeasure(carry, params, rp, dims)
+            carry = _remeasure(carry, params, rp, dims, mesh)
             reg_between = _loops_between(carry)
         else:
             carry, reg_between = _remeasure_moved(carry, reg_between, params,
-                                                  rp, dims)
+                                                  rp, dims, mesh)
         carry = opt(carry)
         if it == 0 and dims.refine_chain:
-            carry, ch_ok, ch_z = _densify_chain(carry, params, rp, dims)
+            carry, ch_ok, ch_z = _densify_chain(carry, params, rp, dims, mesh)
             if dims.refine_scale_from_chain and dims.estimate_dvl_scale:
                 carry = _anchor_scale_from_chain(carry, ch_ok, ch_z, rp, dims,
                                                  scale_basis)
@@ -566,7 +643,7 @@ def refine_loops(carry: SlamCarry, params: SlamParams, rp: RefineParams,
             carry = opt(carry)
         if dims.refine_sweep:
             n_before = carry.num_loops
-            carry = opt(_sweep(carry, params, rp, dims))
+            carry = opt(_sweep(carry, params, rp, dims, mesh))
             if dims.refine_incremental and carry.num_loops > n_before:
                 # the sweep's new lanes were registered at the current poses
                 fresh = slice(n_before, carry.num_loops)
@@ -574,6 +651,6 @@ def refine_loops(carry: SlamCarry, params: SlamParams, rp: RefineParams,
                 reg_between[fresh] = _loops_between(carry)[fresh]
     carry = opt(_prune_loops(carry, rp, dims))
     if dims.refine_final_sweep and dims.refine_sweep:
-        carry = opt(_sweep(carry, params, rp, dims))
+        carry = opt(_sweep(carry, params, rp, dims, mesh))
         carry = opt(_prune_loops(carry, rp, dims))
     return carry

@@ -6,8 +6,11 @@ whole run of ``cli.replay``, of ``cli.two_robot_demo`` (without
 ``--plot``), of ``cli.map_probe`` (which imports ``cli.error_budget``, the
 configurations of every accuracy CLI) or of ``cli.parity_lane``'s lanes on
 the CPU. Every subpackage of the
-port exports every name that the JAX package's exports, but the device-mesh
-helpers (``NOT_PORTED``)."""
+port exports every name that the JAX package's exports (``NOT_PORTED`` is
+empty since the device mesh was ported), and every public function or
+class of a JAX module takes each of its parameters in the port's module of
+the same name, but the few ``NOT_PORTED_PARAMS`` names with their
+reasons."""
 
 import importlib
 import os
@@ -66,6 +69,7 @@ def test_port_imports_no_jax():
                 "cli.frontier_coverage_probe", "cli.run_repeats",
                 "cli.plot_runs", "cli.parity_lane", "io.lz4_lib"):
         assert "sonar_slam_torch." + new in names, new
+    assert "sonar_slam_torch.parallel.mesh" in names
 
 
 _LZ4_SCRIPT = r"""
@@ -238,9 +242,8 @@ def test_cli_parity_lane_runs_without_jax():
     assert "odometry_max_dev_m" in lines[-2] and "ssm_only_ate_m" in lines[-2]
 
 
-# Device-mesh helpers: on one card there is nothing to shard over, and the
-# port runs sweep lanes and the keyframe axis without a mesh.
-NOT_PORTED = {"make_config_mesh", "kf_sharding"}
+# Public names of the JAX package that the port does not export: none.
+NOT_PORTED = set()
 SUBPACKAGES = ["cloud", "estimators", "geometry", "graph", "io", "kernels",
                "mapping", "parallel", "slam", "utils"]
 
@@ -257,3 +260,67 @@ def test_subpackage_exports_every_name_of_the_jax_package(sub):
     want = _exports(importlib.import_module("sonar_slam_tpu." + sub))
     got = _exports(importlib.import_module("sonar_slam_torch." + sub))
     assert want - NOT_PORTED <= got, sorted(want - NOT_PORTED - got)
+
+
+# Parameters of the JAX package's public functions and classes that the
+# port's counterpart does not take, by (module, name), each with its reason.
+NOT_PORTED_PARAMS = {
+    # TPU-only: the scan's host chunk length (the port steps one keyframe a
+    # call)
+    ("slam.core", "SlamDims"): {"scan_chunk"},
+    # TPU-only: Pallas or XLA CFAR (the port launches the CUDA kernel on a
+    # card and its plain version on the CPU)
+    ("slam.frontend", "FeatureExtractor"): {"use_pallas"},
+    # keyframe gates and a warning period that nothing reads
+    ("estimators.dead_reckoning", "DRConfig"): {
+        "keyframe_duration", "keyframe_translation", "keyframe_rotation",
+        "error_warn_secs"},
+    # renamed ``keys``: the port takes several keys in one call
+    ("graph.factor_graph", "marginal_covariance"): {"k"},
+    ("slam.core", "scaled_dr_between"): {"key"},
+}
+
+
+def _jax_modules() -> list:
+    """The JAX package's modules, from its files (nothing is imported),
+    relative to the package ('' for the package itself)."""
+    top = os.path.join(ROOT, "sonar_slam_tpu")
+    names = []
+    for d, _, files in os.walk(top):
+        for f in files:
+            if f.endswith(".py"):
+                parts = os.path.relpath(os.path.join(d, f[:-3]), top)
+                parts = parts.split(os.sep)
+                names.append(".".join(p for p in parts
+                                      if p not in ("__init__", ".")))
+    return sorted(names)
+
+
+JAX_MODULES = _jax_modules()
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_public_callables_take_the_jax_parameters(module):
+    """Each public function and class defined in a JAX module, where the
+    port's module of the same name defines it too, takes every parameter
+    name of the JAX signature (the ``mesh`` and ``axis`` arguments
+    included), but the ``NOT_PORTED_PARAMS`` ones, which it must lack."""
+    import inspect
+
+    suffix = "." + module if module else ""
+    jmod = importlib.import_module("sonar_slam_tpu" + suffix)
+    try:
+        tmod = importlib.import_module("sonar_slam_torch" + suffix)
+    except ModuleNotFoundError:
+        # kernels.cfar_pallas: its kernels are kernels/cfar_cuda.py's
+        assert module == "kernels.cfar_pallas"
+        return
+    for name, fn in vars(jmod).items():
+        if (name.startswith("_") or not callable(fn)
+                or getattr(fn, "__module__", None) != jmod.__name__
+                or not hasattr(tmod, name)):
+            continue
+        want = set(inspect.signature(fn).parameters)
+        got = set(inspect.signature(getattr(tmod, name)).parameters)
+        assert want - got == NOT_PORTED_PARAMS.get((module, name), set()), (
+            name, sorted(want - got))

@@ -1,10 +1,12 @@
-"""``cli.sharded_replay --cpu --max-keyframes 64 --check --duration 60``
-against ``scripts/sharded_replay.py --devices 2 --max-keyframes 64
+"""``cli.sharded_replay --cpu --max-keyframes 64 --capacity-check --duration
+60`` against ``scripts/sharded_replay.py --devices 2 --max-keyframes 64
 --duration 60``, both in subprocesses (about 60 s for the JAX script, which
 shards the refinement over a 2-device CPU mesh, and 40 s for the port).
 
-The port has no mesh: its ``--check`` holds the replay at capacity 64 to the
-same replay at capacity 128. The JAX package's own gap between the two
+The port runs in one process here (tests/test_torch_mesh.py holds the
+sharded refinement to the one-process one); its ``--capacity-check`` holds
+the replay at capacity 64 to the same replay at capacity 128. The JAX
+package's own gap between the two
 capacities (``pipeline.replay`` at K = 64 and K = 128, ``mesh=None``, on this
 survey) is 3.0e-6 m, with the same keyframes and loops; the port's is 0 on
 one thread and 9.5e-7 m on four (a 40 s survey). The CLI's
@@ -51,7 +53,7 @@ def test_cli_sharded_replay_against_the_script():
             stderr=subprocess.PIPE, text=True, env=env),
         subprocess.Popen(
             [sys.executable, "-m", "sonar_slam_torch.cli.sharded_replay",
-             "--cpu", "--check"] + FLAGS, stdout=subprocess.PIPE,
+             "--cpu", "--capacity-check"] + FLAGS, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, cwd=REPO,
             env=dict(env, OMP_NUM_THREADS="1")),
     ]
