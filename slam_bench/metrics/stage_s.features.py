@@ -1,0 +1,9 @@
+"""stage_s.features (s): the replay's ``features`` stage, host clock ending in
+a device sync, averaged over the window's passes."""
+
+from slam_bench.harness import stats
+
+
+def read(ctx):
+    xs = ctx.window.layers.get("features")
+    return stats.mean(xs) if xs else None

@@ -1,0 +1,350 @@
+"""Masked fixed-capacity SE(2) factor graph with Gauss-Newton solves.
+
+Counterpart of ``sonar_slam_tpu/graph/factor_graph.py``: a prior on X(0),
+between factors (diagonal, full-covariance or Cauchy-robust), optional
+per-axis DVL log-scale variables, gtsam's residual conventions, and dense
+normal equations solved by a Jacobi-scaled Cholesky.
+
+* The Jacobians come from ``torch.func.jacfwd`` of the exact residual,
+  batched over the factor table with ``torch.func.vmap``.
+* The normal equations are assembled as ``A^T A`` of one dense stacked
+  Jacobian (F*3, n) instead of the JAX package's scatter-adds: the same sums
+  in another order, and deterministic on the card.
+* A Cholesky that fails fills the factor with NaN, as ``jnp.linalg.cholesky``
+  does; ``optimize`` then escalates the damping.
+* The Gauss-Newton ``while_loop`` becomes at most ``gn_iters`` trips that
+  stop once the step is below tolerance (one host sync per trip).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.func import jacfwd, vmap
+
+from ..geometry import se2_between, se2_compose, se2_inverse, se2_logmap, se2_retract
+
+
+class GraphConfig(NamedTuple):
+    max_poses: int = 256
+    max_factors: int = 1024
+    gn_iters: int = 6
+    damping: float = 1e-9
+    convergence_tol: float = 1e-5
+    step_clamp_t: float = 2.0
+    step_clamp_r: float = 0.5
+    estimate_scale: bool = False
+    scale_prior_sigma: float | tuple = 0.05
+
+
+class GraphState(NamedTuple):
+    poses: torch.Tensor  # (K, 3)
+    num_poses: torch.Tensor  # int64
+    prior_pose: torch.Tensor  # (3,)
+    prior_sqrt_info: torch.Tensor  # (3, 3)
+    f_i: torch.Tensor  # (F,) int64
+    f_j: torch.Tensor  # (F,) int64
+    f_z: torch.Tensor  # (F, 3)
+    f_sqrt_info: torch.Tensor  # (F, 3, 3)
+    f_robust: torch.Tensor  # (F,) bool
+    f_scaled: torch.Tensor  # (F,) bool
+    num_factors: torch.Tensor  # int64
+    log_scale: torch.Tensor  # (2,)
+    log_scale_anchor: torch.Tensor  # (2,)
+
+
+def cholesky_nan(m: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, all-NaN where ``m`` is not positive definite
+    (``jnp.linalg.cholesky`` returns NaN there and callers rely on it)."""
+    L, info = torch.linalg.cholesky_ex(m)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)
+
+
+def sigmas_to_sqrt_info(sigmas: torch.Tensor) -> torch.Tensor:
+    """Diagonal noise model -> whitening matrix."""
+    return torch.diag(1.0 / sigmas)
+
+
+def cov_to_sqrt_info(cov: torch.Tensor) -> torch.Tensor:
+    """Full covariance -> upper-triangular whitening R with R^T R = cov^-1
+    (NaN when the information is not positive definite)."""
+    info, _ = torch.linalg.inv_ex(cov)
+    info = 0.5 * (info + info.transpose(-1, -2))
+    return cholesky_nan(info).transpose(-1, -2)
+
+
+def graph_init(config: GraphConfig, device) -> GraphState:
+    K, F = config.max_poses, config.max_factors
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return GraphState(
+        poses=z(K, 3), num_poses=z(dtype=torch.int64), prior_pose=z(3),
+        prior_sqrt_info=z(3, 3), f_i=z(F, dtype=torch.int64),
+        f_j=z(F, dtype=torch.int64), f_z=z(F, 3), f_sqrt_info=z(F, 3, 3),
+        f_robust=z(F, dtype=torch.bool), f_scaled=z(F, dtype=torch.bool),
+        num_factors=z(dtype=torch.int64), log_scale=z(2),
+        log_scale_anchor=z(2),
+    )
+
+
+def set_pose_estimate(state: GraphState, k, pose) -> GraphState:
+    """Insert/overwrite the initial value of key k (int or 0-d tensor)."""
+    poses = state.poses.clone()
+    poses[k] = pose
+    return state._replace(
+        poses=poses,
+        num_poses=torch.clamp(state.num_poses, min=k + 1) if isinstance(k, int)
+        else torch.maximum(state.num_poses, k + 1))
+
+
+def add_prior(state: GraphState, pose, sqrt_info) -> GraphState:
+    """Anchor X(0) and insert its value."""
+    state = state._replace(prior_pose=pose.clone(), prior_sqrt_info=sqrt_info)
+    return set_pose_estimate(state, 0, pose)
+
+
+def add_between(state: GraphState, i, j, z, sqrt_info, robust=False,
+                enabled=True, scaled=False) -> GraphState:
+    """Append a between factor xi -> xj; a masked no-op when ``enabled`` is
+    False (a bool or a 0-d bool tensor). The write goes to the last slot
+    when disabled and leaves it unchanged."""
+    dev = state.f_i.device
+    F = state.f_i.shape[0]
+    en = torch.as_tensor(enabled, device=dev)
+    slot = torch.where(en, state.num_factors, torch.full_like(state.num_factors, F - 1))
+
+    def put(arr, val):
+        val = torch.as_tensor(val, dtype=arr.dtype, device=dev)
+        new = torch.where(en, val, arr[slot])
+        out = arr.clone()
+        out[slot] = new
+        return out
+
+    return state._replace(
+        f_i=put(state.f_i, i), f_j=put(state.f_j, j), f_z=put(state.f_z, z),
+        f_sqrt_info=put(state.f_sqrt_info, sqrt_info),
+        f_robust=put(state.f_robust, robust),
+        f_scaled=put(state.f_scaled, scaled),
+        num_factors=state.num_factors + en.to(torch.int64),
+    )
+
+
+def _between_residual(xi, xj, z, sqrt_info):
+    err = se2_logmap(se2_compose(se2_inverse(z), se2_between(xi, xj)))
+    return torch.matmul(sqrt_info, err)
+
+
+def _linearize(xi, xj, z, sqrt_info, robust, scaled, log_scale):
+    """Whitened residual (3,) and Jacobian (3, 8) wrt (di, dj, dlog_scale),
+    with gtsam's Cauchy(1) reweighting of robust factors."""
+
+    def f(delta):
+        di, dj, ds = delta[:3], delta[3:6], delta[6:8]
+        s = torch.where(scaled, torch.exp(log_scale + ds), torch.ones_like(ds))
+        z_eff = torch.stack([z[0] * s[0], z[1] * s[1], z[2]])
+        return _between_residual(se2_retract(xi, di), se2_retract(xj, dj),
+                                 z_eff, sqrt_info)
+
+    zero = torch.zeros(8, dtype=xi.dtype, device=xi.device)
+    r = f(zero)
+    J = jacfwd(f)(zero)
+    w = torch.where(robust, 1.0 / (1.0 + torch.sum(r * r)), torch.ones_like(r[0]))
+    sw = torch.sqrt(w)
+    return sw * r, sw * J
+
+
+def _linear_system(state: GraphState, config: GraphConfig):
+    """The whitened stacked Jacobian A (F*3, n) and residual r (F*3,) of the
+    between factors, n = 3K (+2 with scale estimation, whose variables take
+    the last two columns), and the prior's Jacobian J0 (3, 3) and residual
+    r0 (3,)."""
+    K = config.max_poses
+    F = state.f_i.shape[0]
+    dev = state.poses.device
+    active = (torch.arange(F, device=dev) < state.num_factors).to(torch.float32)
+    xi = state.poses[state.f_i]
+    xj = state.poses[state.f_j]
+    r, J = vmap(_linearize, in_dims=(0, 0, 0, 0, 0, 0, None))(
+        xi, xj, state.f_z, state.f_sqrt_info, state.f_robust, state.f_scaled,
+        state.log_scale)
+    r = r * active[:, None]
+    J = J * active[:, None, None]
+
+    n = 3 * K + (2 if config.estimate_scale else 0)
+    A = J.new_zeros((F, 3, n + 3))  # batched under a vmap over graphs
+    ar = torch.arange(F, device=dev)
+    cols = torch.arange(3, device=dev)
+    ci = 3 * state.f_i[:, None] + cols  # (F, 3)
+    cj = 3 * state.f_j[:, None] + cols
+    A[ar[:, None, None], cols[None, :, None], ci[:, None, :]] = J[..., :3]
+    A[ar[:, None, None], cols[None, :, None], cj[:, None, :]] += J[..., 3:6]
+    if config.estimate_scale:
+        A[:, :, 3 * K: 3 * K + 2] = J[..., 6:8]
+    A = A[..., :n].reshape(F * 3, n)
+
+    def fprior(d):
+        return torch.matmul(state.prior_sqrt_info, se2_logmap(
+            se2_compose(se2_inverse(state.prior_pose),
+                        se2_retract(state.poses[0], d))))
+
+    z3 = torch.zeros(3, dtype=torch.float32, device=dev)
+    return A, r.reshape(F * 3), jacfwd(fprior)(z3), fprior(z3)
+
+
+def _products(A, r, J0, r0):
+    """The library products of one graph's normal equations: A^T A, A^T r,
+    J0^T J0, J0^T r0 (the two of r None without r)."""
+    if r is None:
+        return torch.matmul(A.T, A), None, torch.matmul(J0.T, J0), None
+    return (torch.matmul(A.T, A), torch.matmul(A.T, r), torch.matmul(J0.T, J0),
+            torch.matmul(J0.T, r0))
+
+
+def _assemble_normal_equations(state: GraphState, config: GraphConfig,
+                               need_b: bool = True):
+    """H (n, n) and b (n,) at the current estimates, n = 3K (+2 with scale
+    estimation, whose variables take the last two rows/columns); b None
+    without ``need_b``."""
+    K = config.max_poses
+    dev = state.poses.device
+    A, r, J0, r0 = _linear_system(state, config)
+    H, b, JtJ, Jtr = _products(A, r if need_b else None, J0, r0)
+
+    if config.estimate_scale:
+        sp = config.scale_prior_sigma
+        sx, sy = sp if isinstance(sp, (tuple, list)) else (sp, sp)
+        w_s = torch.tensor([1.0 / sx**2, 1.0 / sy**2], dtype=torch.float32,
+                           device=dev)
+        s = torch.arange(3 * K, 3 * K + 2, device=dev)
+        H[..., s, s] += w_s
+        if b is not None:
+            b[..., s] += w_s * (state.log_scale - state.log_scale_anchor)
+
+    H[..., :3, :3] += JtJ
+    if b is not None:
+        b[..., :3] += Jtr
+
+    valid = torch.repeat_interleave(
+        torch.arange(K, device=dev) < state.num_poses[..., None], 3, dim=-1)
+    if config.estimate_scale:
+        valid = torch.cat([valid, torch.ones(valid.shape[:-1] + (2,),
+                                             dtype=torch.bool, device=dev)],
+                          dim=-1)
+    H = H + torch.diag_embed(torch.where(valid, config.damping, 1.0).to(
+        torch.float32))
+    return H, b
+
+
+def _scaled_cho_factor(H):
+    """Jacobi-preconditioned Cholesky: H = D (L L^T) D, D = diag(sqrt(H_ii))."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
+    Hs = H / (d[..., :, None] * d[..., None, :])
+    return cholesky_nan(Hs), d
+
+
+def _scaled_cho_solve(Lf, b):
+    """Solve with :func:`_scaled_cho_factor`'s factor for b (n,) or (n, m)."""
+    L, d = Lf
+    vec = b.ndim == d.ndim
+    bb = (b / d)[..., None] if vec else b / d[..., None]
+    x = torch.cholesky_solve(bb, L)
+    x = x / d[..., None]
+    return x[..., 0] if vec else x
+
+
+def _gn_step(state: GraphState, poses, log_scale, prev_delta, lam,
+             config: GraphConfig):
+    """One relinearized Gauss-Newton sweep from (poses, log_scale) with the
+    adaptive Levenberg damping ``lam`` and the trust-region step clamp.
+    Returns (poses, log_scale, max_delta, lam); ``max_delta`` is inf when
+    the solve failed."""
+    K = config.max_poses
+    dev = poses.device
+    valid = (torch.arange(K, device=dev) < state.num_poses[..., None])[..., None]
+    st = state._replace(poses=poses, log_scale=log_scale)
+    H, b = _assemble_normal_equations(st, config)
+    Hd = H + lam[..., None, None] * torch.diag_embed(
+        torch.diagonal(H, dim1=-2, dim2=-1))
+    delta = -_scaled_cho_solve(_scaled_cho_factor(Hd), b)
+    finite = torch.all(torch.isfinite(delta), dim=-1)
+    delta = torch.where(finite[..., None], delta, torch.zeros_like(delta))
+    if config.estimate_scale:
+        ds = delta[..., 3 * K: 3 * K + 2]
+        delta = delta[..., : 3 * K]
+    else:
+        ds = torch.zeros(delta.shape[:-1] + (2,), device=dev)
+    delta = delta.reshape(delta.shape[:-1] + (K, 3))
+    vdelta = torch.where(valid, delta, torch.zeros_like(delta))
+    if config.step_clamp_t > 0.0:
+        big_t = torch.amax(torch.abs(vdelta[..., :2]), dim=(-2, -1))
+        big_r = torch.amax(torch.abs(vdelta[..., 2]), dim=-1)
+        shrink = torch.clamp(torch.minimum(
+            config.step_clamp_t / torch.clamp(big_t, min=1e-12),
+            config.step_clamp_r / torch.clamp(big_r, min=1e-12)), max=1.0)
+        delta = delta * shrink[..., None, None]
+        vdelta = vdelta * shrink[..., None, None]
+        ds = ds * shrink[..., None]
+    log_scale = log_scale + ds
+    poses = torch.where(valid, se2_retract(poses, delta), poses)
+    max_delta = torch.maximum(torch.amax(torch.abs(vdelta), dim=(-2, -1)),
+                              torch.amax(torch.abs(ds), dim=-1))
+    max_delta = torch.where(finite, max_delta,
+                            torch.full_like(max_delta, float("inf")))
+    grew = finite & (max_delta > prev_delta * 1.05)
+    lam = torch.where(
+        ~finite, torch.clamp(lam, min=1e-6) * 100.0,
+        torch.where(grew, torch.clamp(torch.clamp(lam, min=1e-8) * 30.0,
+                                      max=1.0), lam * 0.25))
+    return poses, log_scale, max_delta, lam
+
+
+def optimize(state: GraphState, config: GraphConfig) -> GraphState:
+    """Up to ``config.gn_iters`` relinearized Gauss-Newton sweeps with the
+    adaptive Levenberg damping and the trust-region step clamp of the JAX
+    version; stops once the largest step component is below tolerance."""
+    dev = state.poses.device
+    poses, log_scale = state.poses, state.log_scale
+    prev_delta = torch.tensor(float("inf"), device=dev)
+    lam = torch.tensor(0.0, device=dev)
+    for _ in range(config.gn_iters):
+        poses, log_scale, prev_delta, lam = _gn_step(
+            state, poses, log_scale, prev_delta, lam, config)
+        if not bool(prev_delta > config.convergence_tol):
+            break
+    return state._replace(poses=poses, log_scale=log_scale)
+
+
+def marginal_covariance(state: GraphState, keys, config: GraphConfig):
+    """Marginal covariance of pose ``keys`` (gtsam's ``marginalCovariance``):
+    the (k, k) blocks of H⁻¹ at the current linearization, from one
+    factorization. (3, 3) for one key (an int or a 0-d tensor), (M, 3, 3)
+    for a 1-D tensor of M keys."""
+    K = config.max_poses
+    H, _ = _assemble_normal_equations(state, config, need_b=False)
+    Lf = _scaled_cho_factor(H)
+    dev = H.device
+    if isinstance(keys, int):
+        k = torch.full((1,), keys, dtype=torch.int64, device=dev)
+    else:
+        k = keys.reshape(-1).to(device=dev, dtype=torch.int64)
+    n = 3 * K + (2 if config.estimate_scale else 0)
+    M = k.shape[0]
+    rows = (3 * k[:, None] + torch.arange(3, device=dev)).reshape(-1)
+    e = torch.zeros((n, 3 * M), dtype=torch.float32, device=dev)
+    e[rows, torch.arange(3 * M, device=dev)] = 1.0
+    e = e.expand(H.shape[:-2] + e.shape)
+    cols = _scaled_cho_solve(Lf, e)  # (..., n, 3M)
+    cov = cols[..., rows, :].reshape(cols.shape[:-2] + (M, 3, M, 3))
+    cov = cov.diagonal(dim1=-4, dim2=-2).movedim(-1, -3)
+    return cov if isinstance(keys, torch.Tensor) and keys.ndim == 1 else cov[..., 0, :, :]
+
+
+def optimize_with_marginal(state: GraphState, k, config: GraphConfig):
+    """``optimize`` plus the 3x3 marginal covariance of pose ``k`` from the
+    final linearization."""
+    state = optimize(state, config)
+    return state, marginal_covariance(state, k, config)
