@@ -27,6 +27,7 @@ import torch
 
 from ..geometry import se2_compose, se2_transform_points, wrap_angle
 from ..lone_sums import each_lane, lone_operand, lone_sum
+from ..utils.timing import host_read
 from .knn import nn_match, sq32
 from .normals import estimate_normals
 
@@ -211,18 +212,19 @@ def _icp_lanes(source_points, source_mask, target_points, target_mask, guesses,
     for _ in range(cfg.max_iterations):
         active = (~done) & (iters < cfg.max_iterations)
         if each_sweep_lane:
-            stepping = torch.nonzero(
-                active.reshape(-1, lone_rows).any(1))[:, 0].tolist()  # host read
+            stepping = torch.nonzero(host_read(
+                torch.Tensor.cpu, active.reshape(-1, lone_rows).any(1)))[:, 0].tolist()
             if not stepping:
                 break
             solve = partial(_each_sweep_lane_p2l, lone_rows, stepping)
-        elif not bool(active.any()):
+        elif not host_read(bool, active.any()):
             break
         moved = se2_transform_points(source_points, pose)  # (G, N, 2)
         idx, d2 = nn_match(target_points, target_mask, moved, source_mask,
                            cfg.knn_max_dist)
         if cfg.outlier_dist_decay < 1.0:
-            decay = torch.tensor(cfg.outlier_dist_decay, dtype=dtype, device=dev)
+            decay = host_read(torch.tensor, cfg.outlier_dist_decay, dtype=dtype,
+                              device=dev)
             gate = torch.clamp(cfg.outlier_max_dist * decay ** iters.to(dtype),
                                min=cfg.outlier_min_dist)
             gate2 = (gate * gate)[:, None]

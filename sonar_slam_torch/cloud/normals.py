@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timing import host_read
 from .knn import BIG, pairwise_sq_dists
 
 
@@ -47,8 +48,10 @@ def estimate_normals(
     v2 = torch.stack([lam - c, b], dim=-1)
     use1 = torch.abs(lam - a) > torch.abs(lam - c)
     v = torch.where(use1[..., None], v1, v2)
-    ex = torch.tensor([1.0, 0.0], dtype=points.dtype, device=points.device)
-    ey = torch.tensor([0.0, 1.0], dtype=points.dtype, device=points.device)
+    ex = host_read(torch.tensor, [1.0, 0.0], dtype=points.dtype,
+                   device=points.device)
+    ey = host_read(torch.tensor, [0.0, 1.0], dtype=points.dtype,
+                   device=points.device)
     axis_n = torch.where((a < c)[..., None], ex, ey)
     v = torch.where((torch.abs(b) < 1e-12)[..., None], axis_n, v)
     norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)

@@ -26,6 +26,7 @@ from torch.func import jacfwd, vmap
 
 from ..geometry import se2_between, se2_compose, se2_inverse, se2_logmap, se2_retract
 from ..lone_sums import each_lane
+from ..utils.timing import host_read, to_device
 
 
 class GraphConfig(NamedTuple):
@@ -129,11 +130,12 @@ def add_between(state: GraphState, i, j, z, sqrt_info, robust=False,
     when disabled and leaves it unchanged."""
     dev = state.f_i.device
     F = state.f_i.shape[0]
-    en = torch.as_tensor(enabled, device=dev)
-    slot = torch.where(en, state.num_factors, torch.full_like(state.num_factors, F - 1))
+    en = to_device(enabled, dev)
+    slot = host_read(int, torch.where(en, state.num_factors,
+                                      torch.full_like(state.num_factors, F - 1)))
 
     def put(arr, val):
-        val = torch.as_tensor(val, dtype=arr.dtype, device=dev)
+        val = to_device(val, dev, arr.dtype)
         new = torch.where(en, val, arr[slot])
         out = arr.clone()
         out[slot] = new
@@ -252,8 +254,8 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig,
     if config.estimate_scale:
         sp = config.scale_prior_sigma
         sx, sy = sp if isinstance(sp, (tuple, list)) else (sp, sp)
-        w_s = torch.tensor([1.0 / sx**2, 1.0 / sy**2], dtype=torch.float32,
-                           device=dev)
+        w_s = host_read(torch.tensor, [1.0 / sx**2, 1.0 / sy**2],
+                        dtype=torch.float32, device=dev)
         s = torch.arange(3 * K, 3 * K + 2, device=dev)
         H[..., s, s] += w_s
         if b is not None:
@@ -353,12 +355,12 @@ def optimize(state: GraphState, config: GraphConfig) -> GraphState:
     version; stops once the largest step component is below tolerance."""
     dev = state.poses.device
     poses, log_scale = state.poses, state.log_scale
-    prev_delta = torch.tensor(float("inf"), device=dev)
-    lam = torch.tensor(0.0, device=dev)
+    prev_delta = host_read(torch.tensor, float("inf"), device=dev)
+    lam = host_read(torch.tensor, 0.0, device=dev)
     for _ in range(config.gn_iters):
         poses, log_scale, prev_delta, lam = _gn_step(
             state, poses, log_scale, prev_delta, lam, config)
-        if not bool(prev_delta > config.convergence_tol):
+        if not host_read(bool, prev_delta > config.convergence_tol):
             break
     return state._replace(poses=poses, log_scale=log_scale)
 
@@ -382,7 +384,7 @@ def marginal_covariance(state: GraphState, keys, config: GraphConfig,
     M = k.shape[0]
     rows = (3 * k[:, None] + torch.arange(3, device=dev)).reshape(-1)
     e = torch.zeros((n, 3 * M), dtype=torch.float32, device=dev)
-    e[rows, torch.arange(3 * M, device=dev)] = 1.0
+    host_read(e.__setitem__, (rows, torch.arange(3 * M, device=dev)), 1.0)
     e = e.expand(H.shape[:-2] + e.shape)
     cols = _scaled_cho_solve(Lf, e, lanes)  # (..., n, 3M)
     cov = cols[..., rows, :].reshape(cols.shape[:-2] + (M, 3, M, 3))
@@ -418,13 +420,13 @@ def optimize_batch(states: GraphState, config: GraphConfig, active=None,
     for _ in range(config.gn_iters):
         active = prev_delta > config.convergence_tol
         if lane_calls:
-            lanes = torch.nonzero(active)[:, 0].tolist()  # host read
+            lanes = torch.nonzero(host_read(torch.Tensor.cpu, active))[:, 0].tolist()
             if not lanes:
                 break
             out = _gn_step(states, poses, log_scale, prev_delta, lam, config,
                            lanes)
         else:
-            if not bool(active.any()):
+            if not host_read(bool, active.any()):
                 break
             out = step(states, poses, log_scale, prev_delta, lam)
         a = active[:, None, None]
@@ -494,7 +496,7 @@ def optimize_with_marginal_lanes(state: GraphState, k: int,
     state = optimize_batch(state, config, active, lane_calls=True)
     B = state.poses.shape[0]
     lanes = (list(range(B)) if active is None
-             else torch.nonzero(active)[:, 0].tolist())  # host read
+             else torch.nonzero(host_read(torch.Tensor.cpu, active))[:, 0].tolist())
     return state, marginal_covariance(state, k, config, lanes)
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..geometry import se2_between, se2_compose, se2_logmap
+from ..utils.timing import host_read, to_device
 
 CHI2_99_3DOF = 11.34
 
@@ -49,7 +50,7 @@ def max_clique_mask(consistency, valid, min_size: int):
     lanes), which share the subset table."""
     Q = consistency.shape[-1]
     dev = consistency.device
-    subsets = torch.as_tensor(_subset_table(Q), device=dev)
+    subsets = to_device(_subset_table(Q), dev)
     eye = torch.eye(Q, dtype=torch.bool, device=dev)
     pair_ok = (consistency[..., None, :, :]
                | ~(subsets[:, :, None] & subsets[:, None, :]) | eye)
@@ -58,11 +59,13 @@ def max_clique_mask(consistency, valid, min_size: int):
     sizes = subsets.sum(dim=1)
     score = torch.where(is_clique, sizes, torch.full_like(sizes, -1))
     best = torch.argmax(score, dim=-1)
-    best_size = sizes[best]
+    # one graph indexes by a device scalar, which the host reads
+    at = host_read(int, best) if best.ndim == 0 else best
+    best_size = sizes[at]
     ok = (torch.gather(score, -1, best[..., None])[..., 0] >= 0) & (
         best_size >= min_size)
-    return (torch.where(ok[..., None], subsets[best],
-                        torch.zeros_like(subsets[best])),
+    return (torch.where(ok[..., None], subsets[at],
+                        torch.zeros_like(subsets[at])),
             torch.where(ok, best_size, torch.zeros_like(best_size)))
 
 

@@ -19,6 +19,10 @@ Counterpart of ``sonar_slam_tpu/pipeline.py::replay``:
    over the keyframes' vertical pings, then the global elevation grid and
    the lifted 3-D clouds (``slam/dual_sonar.py``).
 
+Stages 1-2, 3, 4, 5 and 7 are the ``CodeTimer`` spans ``dr_gate``,
+``features``, ``slam_scan``, ``refine`` and ``dual`` (the first four end in
+a device sync), whose seconds fill ``ReplayResult.stage_s``.
+
 ``occupancy_map`` is bench.py's mapping stage on the result's carry, and
 ``loop_metrics`` / ``ate_rmse`` / ``ate_heading_deg`` / ``dual_sonar_metrics``
 score a replay against the simulator's truth. The JAX package's ``mesh`` option (sharding the
@@ -28,7 +32,6 @@ refinement lanes over devices) has no counterpart on one card.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -66,6 +69,7 @@ from .slam.core import KeyframeInput, SlamDims, SlamParams, select_keyframes, sl
 from .slam.frontend import FeatureConfig, FeatureExtractor, corroborate
 from .slam.dual_sonar import ElevationSpec, fuse_frames_global
 from .slam.refine import RefineParams, check_mesh_dims, refine_loops
+from .utils.timing import CodeTimer
 
 
 class ReplayResult(NamedTuple):
@@ -89,11 +93,6 @@ class ReplayResult(NamedTuple):
     elevation_z: np.ndarray | None = None  # (H, W)
     elevation_w: np.ndarray | None = None  # (H, W)
     elevation_spec: object | None = None  # ElevationSpec
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _kalman_odometry(bag: SyntheticBag, kalman_config: KalmanConfig, device):
@@ -204,76 +203,74 @@ def replay(
     pin_fp32()
     dev = torch.device(device)
     stage_s = {}
-    t0 = time.perf_counter()
+    with CodeTimer("dr_gate", silent=True, sync=dev) as span:
+        # 1) the odometry front end
+        tick_time, dr_poses3, tick_basis = odometry(
+            bag, dev, frontend, dr_config, gyro_config, kalman_config,
+            basis=((dims.refine_scale_basis and dims.estimate_dvl_scale)
+                   or dims.aggregate_with_dr_basis))
+        if dims.aggregate_with_dr_basis and tick_basis is None:
+            raise ValueError(
+                "aggregate_with_dr_basis requires a DR frontend (the basis "
+                "integrals come from dead_reckoning_with_basis_scan)")
 
-    # 1) the odometry front end
-    tick_time, dr_poses3, tick_basis = odometry(
-        bag, dev, frontend, dr_config, gyro_config, kalman_config,
-        basis=((dims.refine_scale_basis and dims.estimate_dvl_scale)
-               or dims.aggregate_with_dr_basis))
-    if dims.aggregate_with_dr_basis and tick_basis is None:
-        raise ValueError(
-            "aggregate_with_dr_basis requires a DR frontend (the basis "
-            "integrals come from dead_reckoning_with_basis_scan)")
-
-    # 2) pair pings with odometry, keyframe gate
-    tick_idx, sync_ok = match_pings_to_ticks(bag.ping_time, tick_time)
-    tick_idx_t = torch.as_tensor(tick_idx, device=dev)
-    ping_dr3 = dr_poses3[tick_idx_t]
-    ping_dr2 = pose3_to_pose2(ping_dr3)
-    n_pings = len(bag.ping_time)
-    ping_time = torch.as_tensor(np.asarray(bag.ping_time, np.float32), device=dev)
-    candidate = sync_ok & (np.arange(n_pings) % feature_config.skip == 0)
-    kf_mask = select_keyframes(ping_time, ping_dr2,
-                               torch.as_tensor(candidate, device=dev), params)
-    kf_idx = np.nonzero(kf_mask.cpu().numpy())[0]
-    K = dims.max_keyframes
-    if len(kf_idx) > K:
-        raise ValueError(
-            f"{len(kf_idx)} keyframes exceed capacity {K}; raise "
-            "SlamDims.max_keyframes or loosen keyframe gates")
-    valid = np.zeros(K, bool)
-    valid[: len(kf_idx)] = True
-    sel = np.concatenate([kf_idx, np.zeros(K - len(kf_idx), np.int64)])
-    _sync(dev)
-    stage_s["dr_gate"] = time.perf_counter() - t0
+        # 2) pair pings with odometry, keyframe gate
+        tick_idx, sync_ok = match_pings_to_ticks(bag.ping_time, tick_time)
+        tick_idx_t = torch.as_tensor(tick_idx, device=dev)
+        ping_dr3 = dr_poses3[tick_idx_t]
+        ping_dr2 = pose3_to_pose2(ping_dr3)
+        n_pings = len(bag.ping_time)
+        ping_time = torch.as_tensor(np.asarray(bag.ping_time, np.float32),
+                                    device=dev)
+        candidate = sync_ok & (np.arange(n_pings) % feature_config.skip == 0)
+        kf_mask = select_keyframes(ping_time, ping_dr2,
+                                   torch.as_tensor(candidate, device=dev), params)
+        kf_idx = np.nonzero(kf_mask.cpu().numpy())[0]
+        K = dims.max_keyframes
+        if len(kf_idx) > K:
+            raise ValueError(
+                f"{len(kf_idx)} keyframes exceed capacity {K}; raise "
+                "SlamDims.max_keyframes or loosen keyframe gates")
+        valid = np.zeros(K, bool)
+        valid[: len(kf_idx)] = True
+        sel = np.concatenate([kf_idx, np.zeros(K - len(kf_idx), np.int64)])
+    stage_s["dr_gate"] = span.took
 
     # 3) features of the keyframe pings (and of their neighbours)
-    t0 = time.perf_counter()
-    images = torch.as_tensor(bag.ping_images, device=dev)
-    extractor = FeatureExtractor(feature_config, bag.geometry, dev)
-    sel_t = torch.as_tensor(sel, device=dev)
-    pts, masks, conf = extractor.extract_batch_conf(images[sel_t])
-    if feature_config.corroborate:
-        neighbors = []
-        for nb in (np.clip(sel - 1, 0, n_pings - 1), np.clip(sel + 1, 0, n_pings - 1)):
-            nb_t = torch.as_tensor(nb, device=dev)
-            npts, nmask, _ = extractor.extract_batch_conf(images[nb_t])
-            neighbors.append((npts, nmask, ping_dr2[nb_t]))
-        masks = corroborate(pts, masks, ping_dr2[sel_t], neighbors,
-                            feature_config.corroborate_rho,
-                            feature_config.corroborate_both)
-    valid_t = torch.as_tensor(valid, device=dev)
-    masks = masks & valid_t[:, None]
-    _sync(dev)
-    stage_s["features"] = time.perf_counter() - t0
+    with CodeTimer("features", silent=True, sync=dev) as span:
+        images = torch.as_tensor(bag.ping_images, device=dev)
+        extractor = FeatureExtractor(feature_config, bag.geometry, dev)
+        sel_t = torch.as_tensor(sel, device=dev)
+        pts, masks, conf = extractor.extract_batch_conf(images[sel_t])
+        if feature_config.corroborate:
+            neighbors = []
+            for nb in (np.clip(sel - 1, 0, n_pings - 1),
+                       np.clip(sel + 1, 0, n_pings - 1)):
+                nb_t = torch.as_tensor(nb, device=dev)
+                npts, nmask, _ = extractor.extract_batch_conf(images[nb_t])
+                neighbors.append((npts, nmask, ping_dr2[nb_t]))
+            masks = corroborate(pts, masks, ping_dr2[sel_t], neighbors,
+                                feature_config.corroborate_rho,
+                                feature_config.corroborate_both)
+        valid_t = torch.as_tensor(valid, device=dev)
+        masks = masks & valid_t[:, None]
+    stage_s["features"] = span.took
 
     # 4) the SLAM scan
-    t0 = time.perf_counter()
-    frames = KeyframeInput(time=ping_time[sel_t], dr_pose3=ping_dr3[sel_t],
-                           points=pts, pmask=masks, valid=valid_t, conf=conf)
-    kf_basis = tick_basis[tick_idx_t][sel_t] if tick_basis is not None else None
-    carry, outputs = slam_scan(frames, params, dims, kf_basis)
-    _sync(dev)
-    stage_s["slam_scan"] = time.perf_counter() - t0
+    with CodeTimer("slam_scan", silent=True, sync=dev) as span:
+        frames = KeyframeInput(time=ping_time[sel_t], dr_pose3=ping_dr3[sel_t],
+                               points=pts, pmask=masks, valid=valid_t, conf=conf)
+        kf_basis = tick_basis[tick_idx_t][sel_t] if tick_basis is not None else None
+        carry, outputs = slam_scan(frames, params, dims, kf_basis)
+    stage_s["slam_scan"] = span.took
 
     # 5) post-convergence loop refinement
     if dims.refine_iters > 0:
-        t0 = time.perf_counter()
-        rp = refine_params if refine_params is not None else RefineParams.default(dev)
-        carry = refine_loops(carry, params, rp, dims, kf_basis, mesh=mesh)
-        _sync(dev)
-        stage_s["refine"] = time.perf_counter() - t0
+        with CodeTimer("refine", silent=True, sync=dev) as span:
+            rp = (refine_params if refine_params is not None
+                  else RefineParams.default(dev))
+            carry = refine_loops(carry, params, rp, dims, kf_basis, mesh=mesh)
+        stage_s["refine"] = span.took
 
     # 6) full-rate pose at every ping
     nk = carry.num_kf
@@ -290,28 +287,28 @@ def replay(
     # 7) dual sonar: vertical detections of the keyframes, then the fusion
     fused = {}
     if use_vertical:
-        t0 = time.perf_counter()
-        vimgs = torch.as_tensor(bag.vertical_images[sel], dtype=torch.float32,
-                                device=dev)
-        # the JAX package detects the vertical fan with cfar_soca2, whose
-        # edge is strict: rows within ntc/2 + ngc/2 of a border never detect
-        vdet = cfar_detect(
-            vimgs, feature_config.ntc // 2, feature_config.ngc // 2,
-            threshold_factor_soca(feature_config.ntc, feature_config.pfa),
-            "SOCA", intensity_threshold=feature_config.threshold, edge="strict")
-        # the elevation grid spans the survey area (trajectory +- max range)
-        half = float(dims.max_range) * (1.0 + dims.aggregation_extent)
-        res = 0.5
-        n = int(np.ceil(2 * half / res))
-        espec = ElevationSpec(x0=-half, y0=-half, resolution=res, nx=n, ny=n)
-        p3, p3m, floor3, fw, egrid = fuse_frames_global(
-            carry.points, carry.pmasks, vimgs, vdet, carry.poses,
-            bag.vertical_geometry, espec)
-        fused = dict(points3d=host(p3), points3d_mask=host(p3m),
-                     floor_points3d=host(floor3), floor_weights=host(fw),
-                     elevation_z=host(egrid.z), elevation_w=host(egrid.w),
-                     elevation_spec=espec)
-        stage_s["dual"] = time.perf_counter() - t0
+        with CodeTimer("dual", silent=True) as span:
+            vimgs = torch.as_tensor(bag.vertical_images[sel], dtype=torch.float32,
+                                    device=dev)
+            # the JAX package detects the vertical fan with cfar_soca2, whose
+            # edge is strict: rows within ntc/2 + ngc/2 of a border never detect
+            vdet = cfar_detect(
+                vimgs, feature_config.ntc // 2, feature_config.ngc // 2,
+                threshold_factor_soca(feature_config.ntc, feature_config.pfa),
+                "SOCA", intensity_threshold=feature_config.threshold, edge="strict")
+            # the elevation grid spans the survey area (trajectory +- max range)
+            half = float(dims.max_range) * (1.0 + dims.aggregation_extent)
+            res = 0.5
+            n = int(np.ceil(2 * half / res))
+            espec = ElevationSpec(x0=-half, y0=-half, resolution=res, nx=n, ny=n)
+            p3, p3m, floor3, fw, egrid = fuse_frames_global(
+                carry.points, carry.pmasks, vimgs, vdet, carry.poses,
+                bag.vertical_geometry, espec)
+            fused = dict(points3d=host(p3), points3d_mask=host(p3m),
+                         floor_points3d=host(floor3), floor_weights=host(fw),
+                         elevation_z=host(egrid.z), elevation_w=host(egrid.w),
+                         elevation_spec=espec)
+        stage_s["dual"] = span.took
 
     return ReplayResult(
         trajectory=host(carry.poses[:nk]), covs=host(carry.covs[:nk]),

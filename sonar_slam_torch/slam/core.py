@@ -64,6 +64,7 @@ from ..graph.factor_graph import (
 )
 from ..graph.pcm import pcm_select
 from ..precision import pin_fp32
+from ..utils.timing import CodeTimer, host_read, to_device
 from .scan_matching import (
     apply_covariance_floor,
     estimate_pose_covariance,
@@ -304,9 +305,9 @@ def select_keyframes(times: torch.Tensor, dr_poses: torch.Tensor,
     trip per keyframe: each trip gates all later pings against the newest
     keyframe at once and jumps to the first that passes. Returns a (T,) bool
     mask on the input's device."""
-    t = times.detach().to("cpu", torch.float32)
-    p = dr_poses.detach().to("cpu", torch.float32)
-    ok = candidate.detach().cpu().to(torch.bool)
+    t = host_read(torch.Tensor.cpu, times.detach()).to(torch.float32)
+    p = host_read(torch.Tensor.cpu, dr_poses.detach()).to(torch.float32)
+    ok = host_read(torch.Tensor.cpu, candidate.detach()).to(torch.bool)
     mask = torch.zeros(len(t), dtype=torch.bool)
     first = torch.nonzero(ok)
     i = int(first[0]) if len(first) else None
@@ -389,7 +390,7 @@ def _aggregate_window(carry: SlamCarry, ref_pose, first_key: int, window: int,
     dev = carry.points.device
 
     def lane(v):
-        return torch.as_tensor(v, device=dev).reshape(1)
+        return to_device(v, dev).reshape(1)
 
     out = _aggregate_windows(carry, ref_pose[None], lane(first_key), window,
                              spec, capacity, lane(ref_key), use_dr_relatives,
@@ -405,7 +406,7 @@ def _mean_censi(mres):
 
 def _best_start(mres):
     score = torch.where(mres.ok, mres.inliers, torch.full_like(mres.inliers, -1))
-    b = torch.argmax(score)
+    b = host_read(int, torch.argmax(score))
     return mres.pose[b], score[b] >= 0
 
 
@@ -436,132 +437,137 @@ def _set(arr, idx, val):
 def _run_nssm(c: SlamCarry, params: SlamParams, dims: SlamDims,
               spec: VoxelGridSpec):
     """Non-sequential scan matching of the newest keyframe window against
-    older keyframes: (ok, status, src_key, target key, transform, cov,
-    overlap)."""
-    dev = c.poses.device
-    K, N, M = dims.max_keyframes, dims.max_points, dims.target_capacity
-    src_key = c.num_kf - 1
-    src_pose = c.poses[src_key]
-    src_pts, src_mask, src_conf = _aggregate_window(
-        c, src_pose, src_key - dims.nssm_source_frames + 1,
-        dims.nssm_source_frames, spec, M, ref_key=src_key,
-        use_dr_relatives=dims.aggregate_with_dr,
-        use_basis=dims.aggregate_with_dr_basis)
-    nsrc_w = conf_weight(src_conf, params)
-    n_src = torch.sum(src_mask)
+    older keyframes: (ok as a host bool, status, src_key, target key,
+    transform, cov, overlap)."""
+    with CodeTimer("nssm.sampling", silent=True):
+        dev = c.poses.device
+        K, N, M = dims.max_keyframes, dims.max_points, dims.target_capacity
+        src_key = c.num_kf - 1
+        src_pose = c.poses[src_key]
+        src_pts, src_mask, src_conf = _aggregate_window(
+            c, src_pose, src_key - dims.nssm_source_frames + 1,
+            dims.nssm_source_frames, spec, M, ref_key=src_key,
+            use_dr_relatives=dims.aggregate_with_dr,
+            use_basis=dims.aggregate_with_dr_basis)
+        nsrc_w = conf_weight(src_conf, params)
+        n_src = torch.sum(src_mask)
 
-    limit = c.num_kf - dims.nssm_min_st_sep
-    kf_idx = torch.arange(K, device=dev)
-    global_pts = se2_transform_points(c.points, c.poses)  # (K, N, 2)
-    flat_global = global_pts.reshape(-1, 2)
-    gmask = c.pmasks & (kf_idx < limit)[:, None]
+        limit = c.num_kf - dims.nssm_min_st_sep
+        kf_idx = torch.arange(K, device=dev)
+        global_pts = se2_transform_points(c.points, c.poses)  # (K, N, 2)
+        flat_global = global_pts.reshape(-1, 2)
+        gmask = c.pmasks & (kf_idx < limit)[:, None]
 
-    # 5-sigma FOV gating against each source-window frame
-    src_keys = src_key - torch.arange(dims.nssm_source_frames, device=dev)
-    safe_src = torch.clamp(src_keys, 0, K - 1)
-    cov_w = c.covs[safe_src]
-    tstd_w = torch.sqrt(max_eig_2x2(cov_w[:, :2, :2]))
-    rstd_w = torch.sqrt(cov_w[:, 2, 2])
-    local = se2_transform_points(flat_global, se2_inverse(c.poses[safe_src]))
-    rng = torch.linalg.vector_norm(local, dim=-1)
-    brg = torch.atan2(local[..., 1], local[..., 0])
-    sels = (rng < (tstd_w * 5.0 + dims.max_range)[:, None]) & (
-        torch.abs(brg) < (rstd_w * 5.0 + dims.half_aperture)[:, None])
-    sels = sels & (src_keys >= 0)[:, None]
-    sel = torch.any(sels, dim=0).reshape(K, N) & gmask
+        # 5-sigma FOV gating against each source-window frame
+        src_keys = src_key - torch.arange(dims.nssm_source_frames, device=dev)
+        safe_src = torch.clamp(src_keys, 0, K - 1)
+        cov_w = c.covs[safe_src]
+        tstd_w = torch.sqrt(max_eig_2x2(cov_w[:, :2, :2]))
+        rstd_w = torch.sqrt(cov_w[:, 2, 2])
+        local = se2_transform_points(flat_global, se2_inverse(c.poses[safe_src]))
+        rng = torch.linalg.vector_norm(local, dim=-1)
+        brg = torch.atan2(local[..., 1], local[..., 0])
+        sels = (rng < (tstd_w * 5.0 + dims.max_range)[:, None]) & (
+            torch.abs(brg) < (rstd_w * 5.0 + dims.half_aperture)[:, None])
+        sels = sels & (src_keys >= 0)[:, None]
+        sel = torch.any(sels, dim=0).reshape(K, N) & gmask
 
-    counts = torch.sum(sel, dim=1)
-    counts_ok = counts > 10
-    total_sel = torch.sum(counts)
-    t1 = torch.argmax(torch.where(counts_ok, counts, torch.full_like(counts, -1)))
-    have_target = (torch.any(counts_ok) & (total_sel >= params.nssm_min_points)
-                   & (n_src >= params.nssm_min_points))
+        counts = torch.sum(sel, dim=1)
+        counts_ok = counts > 10
+        total_sel = torch.sum(counts)
+        t1 = torch.argmax(torch.where(counts_ok, counts, torch.full_like(counts, -1)))
+        have_target = (torch.any(counts_ok) & (total_sel >= params.nssm_min_points)
+                       & (n_src >= params.nssm_min_points))
 
-    tpose1 = c.poses[t1]
-    flat_sel = sel.reshape(-1)
-    local1 = se2_transform_points(flat_global, se2_inverse(tpose1))
-    tpts1, tmask1 = voxel_downsample(local1, flat_sel, spec, M)
-    flat_conf = c.pconf.reshape(-1)
+        tpose1 = c.poses[host_read(int, t1)]
+        flat_sel = sel.reshape(-1)
+        local1 = se2_transform_points(flat_global, se2_inverse(tpose1))
+        tpts1, tmask1 = voxel_downsample(local1, flat_sel, spec, M)
+        flat_conf = c.pconf.reshape(-1)
 
-    cov_src = c.covs[src_key]
-    tstd = torch.sqrt(max_eig_2x2(cov_src[:2, :2]))
-    rstd = torch.sqrt(cov_src[2, 2])
-    bounds = 5.0 * torch.stack([tstd, tstd, rstd])
-    n_guess = max(dims.nssm_cov_samples, 1)
-    gi = global_initialize(src_pts, src_mask, tpts1, tmask1, src_pose, tpose1,
-                           bounds, params.nssm_sobol_pts, params.point_noise,
-                           n_guess)
+        cov_src = c.covs[src_key]
+        tstd = torch.sqrt(max_eig_2x2(cov_src[:2, :2]))
+        rstd = torch.sqrt(cov_src[2, 2])
+        bounds = 5.0 * torch.stack([tstd, tstd, rstd])
+        n_guess = max(dims.nssm_cov_samples, 1)
+        gi = global_initialize(src_pts, src_mask, tpts1, tmask1, src_pose, tpose1,
+                               bounds, params.nssm_sobol_pts, params.point_noise,
+                               n_guess)
 
-    # overlap-based target re-selection
-    est_global = se2_transform_points(src_pts, se2_compose(src_pose, gi.best_delta))
-    idx, _ = nn_match(flat_global, flat_sel, est_global, src_mask,
-                      params.point_noise)
-    matched = idx != -1
-    matched_frame = torch.clamp(idx, 0, K * N - 1) // N
-    counts2 = torch.zeros(K, dtype=torch.int64, device=dev).index_add_(
-        0, matched_frame, matched.to(torch.int64))
-    have_overlap = torch.sum(matched) > 0
-    t2 = torch.argmax(counts2)
-    tpose2 = c.poses[t2]
+        # overlap-based target re-selection
+        est_global = se2_transform_points(src_pts, se2_compose(src_pose, gi.best_delta))
+        idx, _ = nn_match(flat_global, flat_sel, est_global, src_mask,
+                          params.point_noise)
+        matched = idx != -1
+        matched_frame = torch.clamp(idx, 0, K * N - 1) // N
+        counts2 = torch.zeros(K, dtype=torch.int64, device=dev).index_add_(
+            0, matched_frame, matched.to(torch.int64))
+        have_overlap = torch.sum(matched) > 0
+        t2 = torch.argmax(counts2)
+        t2_host = host_read(int, t2)
+        tpose2 = c.poses[t2_host]
 
-    cand = counts_ok
-    if dims.nssm_target_window > 0:
-        cand = cand & (torch.abs(kf_idx - t2) <= dims.nssm_target_window)
-    if dims.aggregate_with_dr and dims.nssm_target_window > 0:
-        if dims.aggregate_with_dr_basis:
-            rel = scaled_dr_between(c, t2, kf_idx, torch.exp(c.graph.log_scale))
+        cand = counts_ok
+        if dims.nssm_target_window > 0:
+            cand = cand & (torch.abs(kf_idx - t2) <= dims.nssm_target_window)
+        if dims.aggregate_with_dr and dims.nssm_target_window > 0:
+            if dims.aggregate_with_dr_basis:
+                rel = scaled_dr_between(c, t2_host, kf_idx,
+                                        torch.exp(c.graph.log_scale))
+            else:
+                rel = se2_between(c.dr_poses[t2_host], c.dr_poses)
         else:
-            rel = se2_between(c.dr_poses[t2], c.dr_poses)
-    else:
-        rel = se2_between(tpose2, c.poses)
-    local2 = se2_transform_points(c.points, rel).reshape(-1, 2)
-    mask2 = (c.pmasks & cand[:, None]).reshape(-1)
-    tpts2, tmask2, tconf2 = voxel_downsample_with_conf(local2, mask2, flat_conf,
-                                                       spec, M)
-    ntgt_w = conf_weight(tconf2, params)
+            rel = se2_between(tpose2, c.poses)
+        local2 = se2_transform_points(c.points, rel).reshape(-1, 2)
+        mask2 = (c.pmasks & cand[:, None]).reshape(-1)
+        tpts2, tmask2, tconf2 = voxel_downsample_with_conf(local2, mask2, flat_conf,
+                                                           spec, M)
+        ntgt_w = conf_weight(tconf2, params)
 
-    if dims.nssm_reinit_after_select:
-        gi = global_initialize(src_pts, src_mask, tpts2, tmask2, src_pose,
-                               tpose2, bounds, params.nssm_sobol_pts,
-                               params.point_noise, n_guess)
-    guesses = gi.guesses_vs(tpose2)
-    mres = icp_multistart(src_pts, src_mask, tpts2, tmask2, guesses,
-                          gi.guess_mask, dims.icp, nsrc_w, ntgt_w)
-    mu, scov, n_ok = estimate_pose_covariance(mres.pose, mres.ok)
-    enough_samples = n_ok >= 5
-    if params.use_best_start_tf:
-        best_pose, best_ok = _best_start(mres)
-        mu = torch.where(best_ok, best_pose, mu)
+        if dims.nssm_reinit_after_select:
+            gi = global_initialize(src_pts, src_mask, tpts2, tmask2, src_pose,
+                                   tpose2, bounds, params.nssm_sobol_pts,
+                                   params.point_noise, n_guess)
+        guesses = gi.guesses_vs(tpose2)
+    with CodeTimer("nssm.icp", silent=True):
+        mres = icp_multistart(src_pts, src_mask, tpts2, tmask2, guesses,
+                              gi.guess_mask, dims.icp, nsrc_w, ntgt_w)
+        mu, scov, n_ok = estimate_pose_covariance(mres.pose, mres.ok)
+        enough_samples = n_ok >= 5
+        if params.use_best_start_tf:
+            best_pose, best_ok = _best_start(mres)
+            mu = torch.where(best_ok, best_pose, mu)
 
-    if dims.nssm_pair_refine:
-        rr = icp(c.points[src_key], c.pmasks[src_key], c.points[t2],
-                 c.pmasks[t2], mu, dims.icp,
-                 conf_weight(c.pconf[src_key], params),
-                 conf_weight(c.pconf[t2], params))
-        dtf = se2_between(mu, rr.pose)
-        consistent = (rr.ok & (_norm2(dtf) <= dims.pair_refine_max_dt)
-                      & (torch.abs(dtf[2]) <= dims.pair_refine_max_dr)
-                      & (rr.inliers >= dims.pair_refine_min_inliers))
-        mu = torch.where(consistent, rr.pose, mu)
-    if params.use_censi_cov:
-        scov = scov + _mean_censi(mres)
-    lcov = localize_covariance(scov, mu)
-    lcov, _ = apply_covariance_floor(lcov, params.icp_odom_sigmas)
+        if dims.nssm_pair_refine:
+            rr = icp(c.points[src_key], c.pmasks[src_key], c.points[t2_host],
+                     c.pmasks[t2_host], mu, dims.icp,
+                     conf_weight(c.pconf[src_key], params),
+                     conf_weight(c.pconf[t2_host], params))
+            dtf = se2_between(mu, rr.pose)
+            consistent = (rr.ok & (_norm2(dtf) <= dims.pair_refine_max_dt)
+                          & (torch.abs(dtf[2]) <= dims.pair_refine_max_dr)
+                          & (rr.inliers >= dims.pair_refine_min_inliers))
+            mu = torch.where(consistent, rr.pose, mu)
+        if params.use_censi_cov:
+            scov = scov + _mean_censi(mres)
+        lcov = localize_covariance(scov, mu)
+        lcov, _ = apply_covariance_floor(lcov, params.icp_odom_sigmas)
 
-    delta = se2_between(guesses[0], mu)
-    small = (_norm2(delta) <= params.nssm_max_translation) & (
-        torch.abs(delta[2]) <= params.nssm_max_rotation)
-    overlap = count_overlap(se2_transform_points(src_pts, mu), src_mask, tpts2,
-                            tmask2, params.point_noise)
-    enough_ov = overlap >= params.nssm_min_points
+        delta = se2_between(guesses[0], mu)
+        small = (_norm2(delta) <= params.nssm_max_translation) & (
+            torch.abs(delta[2]) <= params.nssm_max_rotation)
+        overlap = count_overlap(se2_transform_points(src_pts, mu), src_mask, tpts2,
+                                tmask2, params.point_noise)
+        enough_ov = overlap >= params.nssm_min_points
 
-    ok = have_target & have_overlap & enough_samples & small & enough_ov
-    status = _status(ok, [
-        (~have_target, STATUS_NOT_ENOUGH_POINTS),
-        (~have_overlap | ~enough_ov, STATUS_NOT_ENOUGH_OVERLAP),
-        (~enough_samples, STATUS_NOT_CONVERGED),
-        (None, STATUS_LARGE_TRANSFORMATION),
-    ])
+        ok = have_target & have_overlap & enough_samples & small & enough_ov
+        status = _status(ok, [
+            (~have_target, STATUS_NOT_ENOUGH_POINTS),
+            (~have_overlap | ~enough_ov, STATUS_NOT_ENOUGH_OVERLAP),
+            (~enough_samples, STATUS_NOT_CONVERGED),
+            (None, STATUS_LARGE_TRANSFORMATION),
+        ])
+        ok = host_read(bool, ok)
     return ok, status, src_key, t2, mu, lcov, overlap
 
 
@@ -570,50 +576,53 @@ def _with_loop(c: SlamCarry, params: SlamParams, dims: SlamDims,
     """Queue the new loop, run PCM over the queue window, insert the newly
     accepted loops and re-optimize when any was accepted. Returns (carry,
     loop_added)."""
-    Q = dims.pcm_queue_slots
-    head = c.q_head
-    c = c._replace(
-        q_source=_set(c.q_source, head, nsrc),
-        q_target=_set(c.q_target, head, ntgt),
-        q_tf=_set(c.q_tf, head, ntf),
-        q_cov=_set(c.q_cov, head, ncov),
-        q_inserted=_set(c.q_inserted, head, False),
-        q_used=_set(c.q_used, head, True),
-        q_head=(head + 1) % Q,
-    )
-    in_window = (nsrc - c.q_source) <= params.pcm_queue_size
-    q_valid = c.q_used & in_window
-    sp = c.poses[c.q_source]
-    tp = c.poses[c.q_target]
-    tf_eff = torch.where(c.q_inserted[:, None], se2_between(tp, sp), c.q_tf)
-    accept_mask, _ = pcm_select(sp, tp, tf_eff, c.q_cov, q_valid, min_pcm=0)
-    accept_mask = accept_mask & (torch.sum(accept_mask) >= params.min_pcm)
-    to_insert = (accept_mask & ~c.q_inserted).cpu().numpy()  # host sync
+    with CodeTimer("pcm", silent=True):
+        Q = dims.pcm_queue_slots
+        head = c.q_head
+        c = c._replace(
+            q_source=host_read(_set, c.q_source, head, nsrc),
+            q_target=_set(c.q_target, head, ntgt),
+            q_tf=_set(c.q_tf, head, ntf),
+            q_cov=_set(c.q_cov, head, ncov),
+            q_inserted=host_read(_set, c.q_inserted, head, False),
+            q_used=host_read(_set, c.q_used, head, True),
+            q_head=(head + 1) % Q,
+        )
+        in_window = (nsrc - c.q_source) <= params.pcm_queue_size
+        q_valid = c.q_used & in_window
+        sp = c.poses[c.q_source]
+        tp = c.poses[c.q_target]
+        tf_eff = torch.where(c.q_inserted[:, None], se2_between(tp, sp), c.q_tf)
+        accept_mask, _ = pcm_select(sp, tp, tf_eff, c.q_cov, q_valid, min_pcm=0)
+        accept_mask = accept_mask & (torch.sum(accept_mask) >= params.min_pcm)
+        to_insert = host_read(torch.Tensor.cpu,
+                              accept_mask & ~c.q_inserted).numpy()
 
-    graph = c.graph
-    loops_i, loops_j = c.loops_i, c.loops_j
-    loops_tf, loops_slot = c.loops_tf, c.loops_slot
-    q_inserted, num_loops = c.q_inserted, c.num_loops
-    for qi in range(Q):
-        # capacity gate: past max_loops further loops are dropped
-        if not (to_insert[qi] and num_loops < dims.max_loops):
-            continue
-        slot = num_loops
-        loops_slot = _set(loops_slot, slot, graph.num_factors)
-        graph = add_between(graph, c.q_target[qi], c.q_source[qi], c.q_tf[qi],
-                            cov_to_sqrt_info(c.q_cov[qi]))
-        loops_i = _set(loops_i, slot, c.q_target[qi])
-        loops_j = _set(loops_j, slot, c.q_source[qi])
-        loops_tf = _set(loops_tf, slot, c.q_tf[qi])
-        q_inserted = _set(q_inserted, qi, True)
-        num_loops += 1
-    c = c._replace(graph=graph, loops_i=loops_i, loops_j=loops_j,
-                   loops_tf=loops_tf, loops_slot=loops_slot,
-                   q_inserted=q_inserted, num_loops=num_loops)
-    any_inserted = bool(to_insert.any())
+        graph = c.graph
+        loops_i, loops_j = c.loops_i, c.loops_j
+        loops_tf, loops_slot = c.loops_tf, c.loops_slot
+        q_inserted, num_loops = c.q_inserted, c.num_loops
+        for qi in range(Q):
+            # capacity gate: past max_loops further loops are dropped
+            if not (to_insert[qi] and num_loops < dims.max_loops):
+                continue
+            slot = num_loops
+            loops_slot = _set(loops_slot, slot, graph.num_factors)
+            graph = add_between(graph, c.q_target[qi], c.q_source[qi], c.q_tf[qi],
+                                cov_to_sqrt_info(c.q_cov[qi]))
+            loops_i = _set(loops_i, slot, c.q_target[qi])
+            loops_j = _set(loops_j, slot, c.q_source[qi])
+            loops_tf = _set(loops_tf, slot, c.q_tf[qi])
+            q_inserted = host_read(_set, q_inserted, qi, True)
+            num_loops += 1
+        c = c._replace(graph=graph, loops_i=loops_i, loops_j=loops_j,
+                       loops_tf=loops_tf, loops_slot=loops_slot,
+                       q_inserted=q_inserted, num_loops=num_loops)
+        any_inserted = bool(to_insert.any())
     if any_inserted:
-        g, cov = optimize_with_marginal(c.graph, key, gcfg)
-        c = c._replace(graph=g, poses=g.poses, covs=_set(c.covs, key, cov))
+        with CodeTimer("graph", silent=True):
+            g, cov = optimize_with_marginal(c.graph, key, gcfg)
+            c = c._replace(graph=g, poses=g.poses, covs=_set(c.covs, key, cov))
     return c, any_inserted
 
 
@@ -621,9 +630,18 @@ def keyframe_step(carry: SlamCarry, frame: KeyframeInput, params: SlamParams,
                   dims: SlamDims):
     """Process one keyframe: SSM (or DR odometry) factor, graph update, NSSM
     loop search with PCM, second update on accepted loops. A frame whose
-    ``valid`` is False leaves the carry unchanged (outputs are None)."""
+    ``valid`` is False leaves the carry unchanged (outputs are None). The
+    step is the span ``keyframe_step``, its request the keyframe's index;
+    its phases are the spans ``ssm.sampling``, ``ssm.icp``, ``graph``,
+    ``nssm.sampling``, ``nssm.icp`` and ``pcm``."""
     if not bool(frame.valid):
         return carry, None
+    with CodeTimer("keyframe_step", silent=True, request=carry.num_kf):
+        return _keyframe_step(carry, frame, params, dims)
+
+
+def _keyframe_step(carry: SlamCarry, frame: KeyframeInput, params: SlamParams,
+                   dims: SlamDims):
     dev = carry.poses.device
     gcfg = dims.graph_config()
     spec = dims.agg_spec()
@@ -644,57 +662,59 @@ def keyframe_step(carry: SlamCarry, frame: KeyframeInput, params: SlamParams,
     src_w = conf_weight(frame_conf, params)
 
     # ---------------- sequential scan matching ----------------
-    target_pose = carry.poses[prev]
-    tgt_pts, tgt_mask, tgt_conf = _aggregate_window(
-        carry, target_pose, prev - dims.ssm_target_frames + 1,
-        dims.ssm_target_frames, spec, M, ref_key=prev,
-        use_dr_relatives=dims.aggregate_with_dr,
-        use_basis=dims.aggregate_with_dr_basis)
-    tgt_w = conf_weight(tgt_conf, params)
-    n_target = torch.sum(tgt_mask)
-    ssm_eligible = ((not is_first) and params.ssm_enable) & (
-        n_source >= params.ssm_min_points) & (n_target >= params.ssm_min_points)
+    with CodeTimer("ssm.sampling", silent=True):
+        target_pose = carry.poses[prev]
+        tgt_pts, tgt_mask, tgt_conf = _aggregate_window(
+            carry, target_pose, prev - dims.ssm_target_frames + 1,
+            dims.ssm_target_frames, spec, M, ref_key=prev,
+            use_dr_relatives=dims.aggregate_with_dr,
+            use_basis=dims.aggregate_with_dr_basis)
+        tgt_w = conf_weight(tgt_conf, params)
+        n_target = torch.sum(tgt_mask)
+        ssm_eligible = ((not is_first) and params.ssm_enable) & (
+            n_source >= params.ssm_min_points) & (n_target >= params.ssm_min_points)
 
-    ginit = global_initialize(
-        frame.points, frame.pmask, tgt_pts, tgt_mask, init_pose, target_pose,
-        5.0 * params.odom_sigmas, params.ssm_sobol_pts, params.point_noise,
-        max(dims.ssm_cov_samples, 1))
-    guesses = ginit.guesses_vs(target_pose)
+        ginit = global_initialize(
+            frame.points, frame.pmask, tgt_pts, tgt_mask, init_pose, target_pose,
+            5.0 * params.odom_sigmas, params.ssm_sobol_pts, params.point_noise,
+            max(dims.ssm_cov_samples, 1))
+        guesses = ginit.guesses_vs(target_pose)
 
-    if dims.ssm_cov_samples > 0:
-        mres = icp_multistart(frame.points, frame.pmask, tgt_pts, tgt_mask,
-                              guesses, ginit.guess_mask, dims.icp, src_w, tgt_w)
-        mu, scov, n_ok = estimate_pose_covariance(mres.pose, mres.ok)
-        icp_ok = n_ok >= 5
-        if params.use_best_start_tf:
-            best_pose, best_ok = _best_start(mres)
-            mu = torch.where(best_ok, best_pose, mu)
-        if params.use_censi_cov:
-            scov = scov + _mean_censi(mres)
-        ssm_cov, _ = apply_covariance_floor(localize_covariance(scov, mu),
-                                            params.icp_odom_sigmas)
-        est_tf = mu
-        sq_ssm = cov_to_sqrt_info(ssm_cov)
-    else:
-        sres = icp(frame.points, frame.pmask, tgt_pts, tgt_mask, guesses[0],
-                   dims.icp, src_w, tgt_w)
-        est_tf, icp_ok = sres.pose, sres.ok
-        sq_ssm = sigmas_to_sqrt_info(params.icp_odom_sigmas)
+    with CodeTimer("ssm.icp", silent=True):
+        if dims.ssm_cov_samples > 0:
+            mres = icp_multistart(frame.points, frame.pmask, tgt_pts, tgt_mask,
+                                  guesses, ginit.guess_mask, dims.icp, src_w, tgt_w)
+            mu, scov, n_ok = estimate_pose_covariance(mres.pose, mres.ok)
+            icp_ok = n_ok >= 5
+            if params.use_best_start_tf:
+                best_pose, best_ok = _best_start(mres)
+                mu = torch.where(best_ok, best_pose, mu)
+            if params.use_censi_cov:
+                scov = scov + _mean_censi(mres)
+            ssm_cov, _ = apply_covariance_floor(localize_covariance(scov, mu),
+                                                params.icp_odom_sigmas)
+            est_tf = mu
+            sq_ssm = cov_to_sqrt_info(ssm_cov)
+        else:
+            sres = icp(frame.points, frame.pmask, tgt_pts, tgt_mask, guesses[0],
+                       dims.icp, src_w, tgt_w)
+            est_tf, icp_ok = sres.pose, sres.ok
+            sq_ssm = sigmas_to_sqrt_info(params.icp_odom_sigmas)
 
-    delta = se2_between(guesses[0], est_tf)
-    small_delta = (_norm2(delta) <= params.ssm_max_translation) & (
-        torch.abs(delta[2]) <= params.ssm_max_rotation)
-    ssm_overlap = count_overlap(se2_transform_points(frame.points, est_tf),
-                                frame.pmask, tgt_pts, tgt_mask,
-                                params.point_noise)
-    ssm_ok = ssm_eligible & icp_ok & small_delta & (
-        ssm_overlap >= params.ssm_min_points)
-    ssm_status = _status(ssm_ok, [
-        (~ssm_eligible, STATUS_NOT_ENOUGH_POINTS),
-        (~icp_ok, STATUS_NOT_CONVERGED),
-        (~small_delta, STATUS_LARGE_TRANSFORMATION),
-        (None, STATUS_NOT_ENOUGH_OVERLAP),
-    ])
+        delta = se2_between(guesses[0], est_tf)
+        small_delta = (_norm2(delta) <= params.ssm_max_translation) & (
+            torch.abs(delta[2]) <= params.ssm_max_rotation)
+        ssm_overlap = count_overlap(se2_transform_points(frame.points, est_tf),
+                                    frame.pmask, tgt_pts, tgt_mask,
+                                    params.point_noise)
+        ssm_ok = ssm_eligible & icp_ok & small_delta & (
+            ssm_overlap >= params.ssm_min_points)
+        ssm_status = _status(ssm_ok, [
+            (~ssm_eligible, STATUS_NOT_ENOUGH_POINTS),
+            (~icp_ok, STATUS_NOT_CONVERGED),
+            (~small_delta, STATUS_LARGE_TRANSFORMATION),
+            (None, STATUS_NOT_ENOUGH_OVERLAP),
+        ])
 
     # factor insertion: SSM between-factor or DR odometry fallback; prior on
     # the first keyframe
@@ -729,7 +749,8 @@ def keyframe_step(carry: SlamCarry, frame: KeyframeInput, params: SlamParams,
     )
 
     # ---------------- first graph update ----------------
-    g, cov = optimize_with_marginal(carry.graph, key, gcfg)
+    with CodeTimer("graph", silent=True):
+        g, cov = optimize_with_marginal(carry.graph, key, gcfg)
     carry = carry._replace(graph=g, poses=g.poses, covs=_set(carry.covs, key, cov))
 
     # ---------------- non-sequential scan matching ----------------
@@ -740,7 +761,7 @@ def keyframe_step(carry: SlamCarry, frame: KeyframeInput, params: SlamParams,
     if nssm_eligible:
         nssm_ok, nssm_status, nsrc, ntgt, ntf, ncov, nssm_overlap = _run_nssm(
             carry, params, dims, spec)
-        if bool(nssm_ok):  # host sync
+        if nssm_ok:
             carry, loop_added = _with_loop(carry, params, dims, gcfg, key, nsrc,
                                            ntgt, ntf, ncov)
     else:
@@ -752,7 +773,7 @@ def keyframe_step(carry: SlamCarry, frame: KeyframeInput, params: SlamParams,
     out = StepOutputs(
         pose=carry.poses[key], cov=carry.covs[key], ssm_status=ssm_status,
         ssm_used_icp=ssm_ok, nssm_status=nssm_status, nssm_target=ntgt,
-        loop_added=torch.tensor(loop_added, device=dev),
+        loop_added=host_read(torch.tensor, loop_added, device=dev),
         ssm_overlap=ssm_overlap, nssm_overlap=nssm_overlap,
     )
     return carry, out

@@ -55,6 +55,7 @@ from ..geometry import se2_between, se2_inverse, se2_transform_points
 from ..graph.factor_graph import cov_to_sqrt_info, optimize
 from ..parallel.mesh import Mesh, check_divisible, gather, shard
 from ..precision import pin_fp32
+from ..utils.timing import CodeTimer, host_read, to_device
 from .core import SlamCarry, SlamDims, SlamParams, _aggregate_windows, conf_weight, scaled_dr_between
 from .scan_matching import apply_covariance_floor, localize_covariance
 
@@ -126,7 +127,7 @@ def _drop_set(arr: torch.Tensor, idx, vals, use) -> torch.Tensor:
     lanes that are not used write a spare row that is cut off."""
     pad = torch.cat([arr, arr[:1]])
     safe = torch.where(use, idx, torch.full_like(idx, arr.shape[0]))
-    pad[safe] = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device).expand(
+    pad[safe] = to_device(vals, arr.device, arr.dtype).expand(
         (safe.shape[0],) + arr.shape[1:])
     return pad[:-1]
 
@@ -301,7 +302,7 @@ def _remeasure_moved(carry: SlamCarry, reg_between: torch.Tensor, params, rp,
     score = torch.where(moved, dt + 5.0 * dr, torch.full_like(dt, -1.0))
     top, sel = torch.sort(score, descending=True, stable=True)
     # moved lanes score > 0 and lead the order; at most B of them register
-    n_act = min(int(torch.sum(top[:B] > 0.0)), B)
+    n_act = min(host_read(int, torch.sum(top[:B] > 0.0)), B)
     if n_act == 0:
         return carry, reg_between
     sel = sel[:n_act]
@@ -418,7 +419,8 @@ def solve_scale_from_basis(chain_ok, chain_z, basis, dr_heading, prior_sigma,
                                device=chain_z.device) ** 2
     M = M + torch.diag(pw)
     v = v + pw  # prior centre: correction 1 (nominal)
-    sol = torch.clamp(torch.linalg.solve(M, v), 0.9, 1.1)
+    # the solve checks for a singular M on the host
+    sol = torch.clamp(host_read(torch.linalg.solve, M, v), 0.9, 1.1)
     return torch.log(sol), torch.sum(chain_ok) >= min_n
 
 
@@ -516,7 +518,7 @@ def _sweep(carry: SlamCarry, params, rp, dims: SlamDims,
         src_of, tgt_of, has_tgt = src_of[bidx], tgt_of[bidx], bv > 0
 
     # only lanes with a target can insert; keep them in lane order
-    lanes = torch.nonzero(has_tgt).reshape(-1)
+    lanes = host_read(torch.nonzero, has_tgt).reshape(-1)
     if lanes.numel() == 0:
         return carry
     j, i = src_of[lanes], tgt_of[lanes]
@@ -557,7 +559,7 @@ def _sweep(carry: SlamCarry, params, rp, dims: SlamDims,
         loops_tf=_drop_set(carry.loops_tf, slot, z, en),
         loops_slot=_drop_set(carry.loops_slot, slot, fslot0 + rank, en),
     )
-    return c._replace(num_loops=carry.num_loops + int(torch.sum(en)))
+    return c._replace(num_loops=carry.num_loops + host_read(int, torch.sum(en)))
 
 
 def _prune_loops(carry: SlamCarry, rp, dims: SlamDims) -> SlamCarry:
@@ -582,7 +584,7 @@ def _prune_loops(carry: SlamCarry, rp, dims: SlamDims) -> SlamCarry:
     return carry._replace(
         graph=g, loops_i=carry.loops_i[order], loops_j=carry.loops_j[order],
         loops_tf=carry.loops_tf[order], loops_slot=carry.loops_slot[order],
-        num_loops=int(torch.sum(keep)))
+        num_loops=host_read(int, torch.sum(keep)))
 
 
 def refine_loops(carry: SlamCarry, params: SlamParams, rp: RefineParams,
@@ -604,7 +606,11 @@ def refine_loops(carry: SlamCarry, params: SlamParams, rp: RefineParams,
     first, each rank registers its contiguous block, and the per-lane
     (ok, z, cov) are gathered and cut back to L; every rank then holds the
     same refined carry. A fan-out whose lanes differ between ranks raises
-    RuntimeError on every rank."""
+    RuntimeError on every rank.
+
+    Its phases are the spans ``refine.remeasure``, ``refine.chain`` (the
+    chain and the scale anchor), ``refine.sweep``, ``refine.prune`` and
+    ``refine.optimize`` (each Gauss-Newton solve)."""
     if mesh is not None:
         check_mesh_dims(dims, mesh.size)
     if dims.refine_iters <= 0:
@@ -621,36 +627,48 @@ def refine_loops(carry: SlamCarry, params: SlamParams, rp: RefineParams,
     cfg = gcfg
 
     def opt(c: SlamCarry) -> SlamCarry:
-        g = optimize(c.graph, cfg)
+        with CodeTimer("refine.optimize", silent=True):
+            g = optimize(c.graph, cfg)
         return c._replace(graph=g, poses=g.poses)
+
+    def sweep(c: SlamCarry) -> SlamCarry:
+        with CodeTimer("refine.sweep", silent=True):
+            return _sweep(c, params, rp, dims, mesh)
+
+    def prune(c: SlamCarry) -> SlamCarry:
+        with CodeTimer("refine.prune", silent=True):
+            return _prune_loops(c, rp, dims)
 
     # endpoint relative pose of each loop at its last registration
     reg_between = _loops_between(carry)
     for it in range(dims.refine_iters):
-        if it == 0 or not dims.refine_incremental:
-            carry = _remeasure(carry, params, rp, dims, mesh)
-            reg_between = _loops_between(carry)
-        else:
-            carry, reg_between = _remeasure_moved(carry, reg_between, params,
-                                                  rp, dims, mesh)
+        with CodeTimer("refine.remeasure", silent=True):
+            if it == 0 or not dims.refine_incremental:
+                carry = _remeasure(carry, params, rp, dims, mesh)
+                reg_between = _loops_between(carry)
+            else:
+                carry, reg_between = _remeasure_moved(
+                    carry, reg_between, params, rp, dims, mesh)
         carry = opt(carry)
         if it == 0 and dims.refine_chain:
-            carry, ch_ok, ch_z = _densify_chain(carry, params, rp, dims, mesh)
-            if dims.refine_scale_from_chain and dims.estimate_dvl_scale:
-                carry = _anchor_scale_from_chain(carry, ch_ok, ch_z, rp, dims,
-                                                 scale_basis)
-                cfg = gcfg_anchored
+            with CodeTimer("refine.chain", silent=True):
+                carry, ch_ok, ch_z = _densify_chain(carry, params, rp, dims,
+                                                    mesh)
+                if dims.refine_scale_from_chain and dims.estimate_dvl_scale:
+                    carry = _anchor_scale_from_chain(carry, ch_ok, ch_z, rp,
+                                                     dims, scale_basis)
+                    cfg = gcfg_anchored
             carry = opt(carry)
         if dims.refine_sweep:
             n_before = carry.num_loops
-            carry = opt(_sweep(carry, params, rp, dims, mesh))
+            carry = opt(sweep(carry))
             if dims.refine_incremental and carry.num_loops > n_before:
                 # the sweep's new lanes were registered at the current poses
                 fresh = slice(n_before, carry.num_loops)
                 reg_between = reg_between.clone()
                 reg_between[fresh] = _loops_between(carry)[fresh]
-    carry = opt(_prune_loops(carry, rp, dims))
+    carry = opt(prune(carry))
     if dims.refine_final_sweep and dims.refine_sweep:
-        carry = opt(_sweep(carry, params, rp, dims, mesh))
-        carry = opt(_prune_loops(carry, rp, dims))
+        carry = opt(sweep(carry))
+        carry = opt(prune(carry))
     return carry

@@ -23,6 +23,7 @@ import torch
 from ..cloud.knn import BIG, _gate, pairwise_sq_dists, sq32
 from ..geometry import se2_between, se2_compose, se2_rotmat, se2_transform_points
 from ..graph.factor_graph import cholesky_nan
+from ..utils.timing import host_read
 
 # Sobol samples scored per chunk: bounds the (chunk * N, M) distance matrix
 _COST_CHUNK = 64
@@ -121,7 +122,7 @@ def global_initialize(source_points, source_mask, target_points, target_mask,
     order = torch.sort(costs, stable=True).indices
     sample_poses = se2_compose(source_pose, deltas)
     sorted_poses = sample_poses[order]
-    best = order[0]
+    best = host_read(int, order[0])
 
     S = sorted_poses.shape[0]
     rel = se2_between(sorted_poses[:, None, :], sorted_poses[None, :, :])
@@ -230,12 +231,12 @@ def estimate_pose_covariance(samples, sample_mask, support_fraction: float = 0.8
     for s in range(num_starts):
         picks = valid_idx[(s + torch.arange(4, device=dev) * num_starts) % nmax]
         w = torch.zeros(G, device=dev)
-        w[picks] = 1.0
+        host_read(w.__setitem__, picks, 1.0)
         starts.append(w * maskf)
     starts.append(maskf)
     w = torch.stack(starts)  # (P, G)
 
-    kth = torch.clamp(h - 1, 0, G - 1)
+    kth = host_read(int, torch.clamp(h - 1, 0, G - 1))
     for _ in range(c_steps):
         mu, cov = mean_cov(w)
         inv, _ = torch.linalg.inv_ex(cov + ridge)
@@ -248,7 +249,7 @@ def estimate_pose_covariance(samples, sample_mask, support_fraction: float = 0.8
     logdet = _logdet_psd_3x3(cov + ridge)
     dets = torch.where(torch.sum(w, dim=-1) >= h.to(torch.float32), logdet,
                        torch.full_like(logdet, 1e30))
-    best = torch.argmin(dets)
+    best = host_read(int, torch.argmin(dets))
     return mu[best], cov[best], n
 
 

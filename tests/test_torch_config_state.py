@@ -198,21 +198,6 @@ def test_streams_registry():
     assert Streams.SONAR_FEATURES != Streams.SLAM_CLOUD
 
 
-def test_profile_slam_components():
-    from sonar_slam_torch.cloud import ICPConfig
-    from sonar_slam_torch.utils import profile_slam_components
-
-    dims = SlamDims(max_keyframes=8, max_points=32, target_capacity=64,
-                    ssm_sobol=16, nssm_sobol=16, nssm_cov_samples=4,
-                    max_loops=4, pcm_queue_slots=3,
-                    icp=ICPConfig(max_iterations=5))
-    spans = profile_slam_components(dims, SlamParams.default(dims, "cpu"),
-                                    "cpu", repeats=1)
-    assert len(spans) == 4
-    assert all(v >= 0 for v in spans.values())
-    assert "SLAM - nonsequential scan matching - ICP" in spans
-
-
 # ---- the YAML reader and the loaders against the JAX package ----
 
 

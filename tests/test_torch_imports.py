@@ -6,8 +6,8 @@ whole run of ``cli.replay``, of ``cli.two_robot_demo`` (without
 ``--plot``), of ``cli.map_probe`` (which imports ``cli.error_budget``, the
 configurations of every accuracy CLI) or of ``cli.parity_lane``'s lanes on
 the CPU. Every subpackage of the
-port exports every name that the JAX package's exports (``NOT_PORTED`` is
-empty since the device mesh was ported), and every public function or
+port exports every name that the JAX package's exports but the
+``NOT_PORTED`` ones, and every public function or
 class of a JAX module takes each of its parameters in the port's module of
 the same name, but the few ``NOT_PORTED_PARAMS`` names with their
 reasons."""
@@ -60,7 +60,7 @@ def test_port_imports_no_jax():
                 "mapping.metrics", "estimators.gyro", "estimators.kalman",
                 "slam.dual_sonar", "slam.services", "io.config", "io.state",
                 "io.lz4", "io.rosbag", "utils", "utils.logging",
-                "utils.streams", "utils.timing", "utils.profile", "utils.viz",
+                "utils.streams", "utils.timing", "utils.viz",
                 "cli", "cli.replay", "cli.convert_bag", "cli.simulate_bag",
                 "parallel", "parallel.sweep", "parallel.keyframe_shard",
                 "parallel.multi_robot", "cli.sweep", "cli.two_robot_demo",
@@ -242,8 +242,14 @@ def test_cli_parity_lane_runs_without_jax():
     assert "odometry_max_dev_m" in lines[-2] and "ssm_only_ate_m" in lines[-2]
 
 
-# Public names of the JAX package that the port does not export: none.
-NOT_PORTED = set()
+# Public names of the JAX package that the port does not export, each with
+# its reason.
+NOT_PORTED = {
+    # times the reference's four SLAM blocks on synthetic clouds; the port
+    # records the same computations as spans inside the real keyframe step
+    # (utils/timing.py)
+    "profile_slam_components",
+}
 SUBPACKAGES = ["cloud", "estimators", "geometry", "graph", "io", "kernels",
                "mapping", "parallel", "slam", "utils"]
 
@@ -312,8 +318,9 @@ def test_public_callables_take_the_jax_parameters(module):
     try:
         tmod = importlib.import_module("sonar_slam_torch" + suffix)
     except ModuleNotFoundError:
-        # kernels.cfar_pallas: its kernels are kernels/cfar_cuda.py's
-        assert module == "kernels.cfar_pallas"
+        # kernels.cfar_pallas: its kernels are kernels/cfar_cuda.py's;
+        # utils.profile: see NOT_PORTED
+        assert module in ("kernels.cfar_pallas", "utils.profile")
         return
     for name, fn in vars(jmod).items():
         if (name.startswith("_") or not callable(fn)
