@@ -14,6 +14,11 @@ normal equations solved by a Jacobi-scaled Cholesky.
   does; ``optimize`` then escalates the damping.
 * The Gauss-Newton ``while_loop`` becomes at most ``gn_iters`` trips that
   stop once the step is below tolerance (one host sync per trip).
+* On a CUDA card an unbatched graph's sweep and marginal run as captured
+  CUDA graphs (:class:`_Replayed`): a configuration's first sweep and first
+  marginal run op by op, then each is captured over static buffers and
+  replayed, the same kernels on the same data, so the results keep their
+  bits. The lane paths, ``vmap`` and the CPU run op by op.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from torch.func import jacfwd, vmap
 
 from ..geometry import se2_between, se2_compose, se2_inverse, se2_logmap, se2_retract
 from ..lone_sums import each_lane
-from ..utils.timing import host_read, to_device
+from ..utils.timing import count_graph_run, host_read, to_device
 
 
 class GraphConfig(NamedTuple):
@@ -221,6 +226,24 @@ def _products(A, r, J0, r0):
             torch.matmul(J0.T, r0))
 
 
+_SCALE_WEIGHTS: dict = {}
+
+
+def _scale_weights(config: GraphConfig, dev) -> torch.Tensor:
+    """The scale prior's weights (1/sx², 1/sy²), float32 (2,) on ``dev``,
+    made once per prior and device by fills on the device (no host copy)."""
+    sp = config.scale_prior_sigma
+    sx, sy = sp if isinstance(sp, (tuple, list)) else (sp, sp)
+    key = (sx, sy, dev)
+    w = _SCALE_WEIGHTS.get(key)
+    if w is None:
+        w = torch.empty(2, dtype=torch.float32, device=dev)
+        w[0].fill_(1.0 / sx**2)
+        w[1].fill_(1.0 / sy**2)
+        _SCALE_WEIGHTS[key] = w
+    return w
+
+
 def _assemble_normal_equations(state: GraphState, config: GraphConfig,
                                lanes=None, need_b: bool = True):
     """H (n, n) and b (n,) at the current estimates, n = 3K (+2 with scale
@@ -252,10 +275,7 @@ def _assemble_normal_equations(state: GraphState, config: GraphConfig,
             b = None
 
     if config.estimate_scale:
-        sp = config.scale_prior_sigma
-        sx, sy = sp if isinstance(sp, (tuple, list)) else (sp, sp)
-        w_s = host_read(torch.tensor, [1.0 / sx**2, 1.0 / sy**2],
-                        dtype=torch.float32, device=dev)
+        w_s = _scale_weights(config, dev)
         s = torch.arange(3 * K, 3 * K + 2, device=dev)
         H[..., s, s] += w_s
         if b is not None:
@@ -353,16 +373,42 @@ def optimize(state: GraphState, config: GraphConfig) -> GraphState:
     """Up to ``config.gn_iters`` relinearized Gauss-Newton sweeps with the
     adaptive Levenberg damping and the trust-region step clamp of the JAX
     version; stops once the largest step component is below tolerance."""
+    if _replayable(state):
+        return _replayed(state, config).optimize(state, config)
     dev = state.poses.device
     poses, log_scale = state.poses, state.log_scale
-    prev_delta = host_read(torch.tensor, float("inf"), device=dev)
-    lam = host_read(torch.tensor, 0.0, device=dev)
+    prev_delta = torch.full((), float("inf"), device=dev)
+    lam = torch.zeros((), device=dev)
     for _ in range(config.gn_iters):
         poses, log_scale, prev_delta, lam = _gn_step(
             state, poses, log_scale, prev_delta, lam, config)
+        count_graph_run(False)
         if not host_read(bool, prev_delta > config.convergence_tol):
             break
     return state._replace(poses=poses, log_scale=log_scale)
+
+
+def _several(keys) -> bool:
+    return isinstance(keys, torch.Tensor) and keys.ndim == 1
+
+
+def _marginals(state: GraphState, k: torch.Tensor, config: GraphConfig,
+               lanes=None) -> torch.Tensor:
+    """(..., M, 3, 3) marginal covariances of the M keys ``k`` (an int64
+    device tensor) from one factorization of H at ``state``."""
+    K = config.max_poses
+    H, _ = _assemble_normal_equations(state, config, lanes, need_b=False)
+    Lf = _scaled_cho_factor(H, lanes)
+    dev = H.device
+    n = 3 * K + (2 if config.estimate_scale else 0)
+    M = k.shape[0]
+    rows = (3 * k[:, None] + torch.arange(3, device=dev)).reshape(-1)
+    # unit columns: a 1 in row rows[c] of column c
+    e = (torch.arange(n, device=dev)[:, None] == rows).to(torch.float32)
+    e = e.expand(H.shape[:-2] + e.shape)
+    cols = _scaled_cho_solve(Lf, e, lanes)  # (..., n, 3M)
+    cov = cols[..., rows, :].reshape(cols.shape[:-2] + (M, 3, M, 3))
+    return cov.diagonal(dim1=-4, dim2=-2).movedim(-1, -3)
 
 
 def marginal_covariance(state: GraphState, keys, config: GraphConfig,
@@ -372,31 +418,153 @@ def marginal_covariance(state: GraphState, keys, config: GraphConfig,
     factorization. (3, 3) for one key (an int or a 0-d tensor), (M, 3, 3)
     for a 1-D tensor of M keys. With ``lanes``, of B graphs (the listed
     lanes' blocks; a leading lane axis on the result)."""
-    K = config.max_poses
-    H, _ = _assemble_normal_equations(state, config, lanes, need_b=False)
-    Lf = _scaled_cho_factor(H, lanes)
-    dev = H.device
+    if lanes is None and _replayable(state):
+        rep = _replayed(state, config)
+        rep.load(state)
+        return rep.marginal(keys)
+    dev = state.poses.device
     if isinstance(keys, int):
         k = torch.full((1,), keys, dtype=torch.int64, device=dev)
     else:
-        k = keys.reshape(-1).to(device=dev, dtype=torch.int64)
-    n = 3 * K + (2 if config.estimate_scale else 0)
-    M = k.shape[0]
-    rows = (3 * k[:, None] + torch.arange(3, device=dev)).reshape(-1)
-    e = torch.zeros((n, 3 * M), dtype=torch.float32, device=dev)
-    host_read(e.__setitem__, (rows, torch.arange(3 * M, device=dev)), 1.0)
-    e = e.expand(H.shape[:-2] + e.shape)
-    cols = _scaled_cho_solve(Lf, e, lanes)  # (..., n, 3M)
-    cov = cols[..., rows, :].reshape(cols.shape[:-2] + (M, 3, M, 3))
-    cov = cov.diagonal(dim1=-4, dim2=-2).movedim(-1, -3)
-    return cov if isinstance(keys, torch.Tensor) and keys.ndim == 1 else cov[..., 0, :, :]
+        k = to_device(keys, dev, torch.int64).reshape(-1)
+    cov = _marginals(state, k, config, lanes)
+    count_graph_run(False)
+    return cov if _several(keys) else cov[..., 0, :, :]
 
 
 def optimize_with_marginal(state: GraphState, k, config: GraphConfig):
     """``optimize`` plus the 3x3 marginal covariance of pose ``k`` from the
     final linearization."""
+    if _replayable(state):
+        rep = _replayed(state, config)
+        return rep.optimize(state, config), rep.marginal(k)
     state = optimize(state, config)
     return state, marginal_covariance(state, k, config)
+
+
+# ----------------------------------------------------------------------
+# an unbatched graph on a card: the sweep and the marginal as captured
+# CUDA graphs
+# ----------------------------------------------------------------------
+
+_REPLAYED: dict = {}
+
+
+def _replayable(state: GraphState) -> bool:
+    """A graph on a CUDA card, outside ``vmap`` (whose graphs are lanes)."""
+    return (state.poses.is_cuda
+            and not torch._C._are_functorch_transforms_active())
+
+
+def _replayed(state: GraphState, config: GraphConfig) -> "_Replayed":
+    """The :class:`_Replayed` of everything a sweep holds as a constant:
+    K, F, ``estimate_scale``, ``scale_prior_sigma``, ``damping``, the step
+    clamps and the device. ``gn_iters`` and ``convergence_tol`` stay on the
+    host, so configurations that differ only there share the graphs."""
+    sp = config.scale_prior_sigma
+    key = (config.max_poses, state.f_i.shape[0], config.estimate_scale,
+           tuple(sp) if isinstance(sp, list) else sp, config.damping,
+           config.step_clamp_t, config.step_clamp_r, state.poses.device)
+    rep = _REPLAYED.get(key)
+    if rep is None:
+        rep = _REPLAYED[key] = _Replayed(state, config)
+    return rep
+
+
+class _Replayed:
+    """A configuration's Gauss-Newton sweep and marginals on one card, as
+    CUDA graphs over static buffers: ``bufs`` holds a graph's state (its
+    ``poses`` and ``log_scale`` the estimates the sweep steps), ``prev_delta``
+    and ``lam`` the last step and the damping. A sweep writes its results
+    back into them; the marginal of M keys reads its keys from ``keys[M]``
+    and writes ``covs[M]``. A graph's first run is op by op (the result and
+    the warm-up); it is then captured, and every later run replays it. The
+    graphs share one memory pool and run one at a time, on the current
+    stream; the results are cloned out before the next call."""
+
+    def __init__(self, state: GraphState, config: GraphConfig):
+        dev = state.poses.device
+        self.config = config
+        self.bufs = GraphState(*(torch.empty(x.shape, dtype=x.dtype, device=dev)
+                                 for x in state))
+        self.prev_delta = torch.empty((), device=dev)
+        self.lam = torch.empty((), device=dev)
+        self.keys: dict = {}
+        self.covs: dict = {}
+        self.graphs: dict = {}
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(dev)
+
+    def load(self, state: GraphState) -> None:
+        for buf, x in zip(self.bufs, state):
+            buf.copy_(x)
+
+    def _run(self, name, body) -> None:
+        """Replay the graph ``name``; on its first run, run ``body`` op by
+        op and capture it."""
+        graph = self.graphs.get(name)
+        if graph is not None:
+            graph.replay()
+            count_graph_run(True)
+            return
+        body()
+        count_graph_run(False)
+        graph = torch.cuda.CUDAGraph()
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(self.stream)
+        # cuBLAS keeps a workspace a stream (32 MiB on an H100), the capture
+        # stream's made during the capture in the graphs' pool: dropped, it
+        # goes back to that pool, which only later captures draw on, instead
+        # of staying allocated beside the current stream's
+        torch._C._cuda_clearCublasWorkspaces()
+        self.graphs[name] = graph
+
+    def _sweep(self) -> None:
+        b = self.bufs
+        out = _gn_step(b, b.poses, b.log_scale, self.prev_delta, self.lam,
+                       self.config)
+        for buf, x in zip((b.poses, b.log_scale, self.prev_delta, self.lam), out):
+            buf.copy_(x)
+
+    def optimize(self, state: GraphState, config: GraphConfig) -> GraphState:
+        """:func:`optimize` of ``state``, which stays loaded, with
+        ``config``'s sweep count and tolerance."""
+        self.load(state)
+        self.prev_delta.fill_(float("inf"))
+        self.lam.zero_()
+        for _ in range(config.gn_iters):
+            self._run("sweep", self._sweep)
+            if not host_read(bool, self.prev_delta > config.convergence_tol):
+                break
+        return state._replace(poses=self.bufs.poses.clone(),
+                              log_scale=self.bufs.log_scale.clone())
+
+    def marginal(self, keys) -> torch.Tensor:
+        """:func:`marginal_covariance` of the loaded state."""
+        M = keys.numel() if _several(keys) else 1
+        if M not in self.keys:
+            dev = self.bufs.poses.device
+            self.keys[M] = torch.empty(M, dtype=torch.int64, device=dev)
+            self.covs[M] = torch.empty((M, 3, 3), device=dev)
+        k = self.keys[M]
+        if isinstance(keys, int):
+            k.fill_(keys)
+        else:
+            k.copy_(to_device(keys, k.device, torch.int64).reshape(-1))
+
+        def body():
+            self.covs[M].copy_(_marginals(self.bufs, k, self.config))
+
+        self._run(M, body)
+        cov = self.covs[M].clone()
+        return cov if _several(keys) else cov[0]
 
 
 def optimize_batch(states: GraphState, config: GraphConfig, active=None,

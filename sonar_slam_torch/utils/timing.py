@@ -17,7 +17,9 @@ its children), and the host reads made in it. :func:`host_read` wraps each
 place where the program waits for the device to hand a value to the host;
 while recording, it adds one read and the nanoseconds the host blocked in it
 to the innermost open span (:func:`to_device` for a copy to the device).
-With no profiler active nothing is recorded and
+:func:`count_graph_run` counts each Gauss-Newton sweep and each marginal of
+the factor graph on the innermost open span, as ``replayed`` (a captured
+CUDA graph) or ``eager``. With no profiler active nothing is recorded and
 no device memory is touched: a span costs one profiler check and two clock
 reads, a host read one list check. :func:`trace_records` returns the
 records; :func:`reset_timing` clears them and the report.
@@ -68,10 +70,12 @@ class Record:
     """One recorded span: times in ``time.time_ns`` nanoseconds, ``parent``
     the index in :func:`trace_records` of the enclosing span (None for a
     root), ``reads`` and ``read_ns`` the host reads made directly in it and
-    the nanoseconds the host blocked in them."""
+    the nanoseconds the host blocked in them, ``replayed`` and ``eager`` the
+    factor graph's sweeps and marginals run directly in it as captured CUDA
+    graphs and op by op."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "request", "reads",
-                 "read_ns", "index")
+                 "read_ns", "replayed", "eager", "index")
 
     def __init__(self, name, parent, request, index):
         self.name = name
@@ -80,12 +84,15 @@ class Record:
         self.request = request
         self.reads = 0
         self.read_ns = 0
+        self.replayed = 0
+        self.eager = 0
         self.index = index
 
     def __repr__(self):
         return (f"Record({self.name!r}, {self.start_ns}, {self.end_ns}, "
                 f"parent={self.parent}, request={self.request}, "
-                f"reads={self.reads}, read_ns={self.read_ns})")
+                f"reads={self.reads}, read_ns={self.read_ns}, "
+                f"replayed={self.replayed}, eager={self.eager})")
 
 
 def _open(name: str, request) -> Record:
@@ -155,6 +162,17 @@ def host_read(fn, *args, **kwargs):
     rec.reads += 1
     rec.read_ns += time.time_ns() - t0
     return out
+
+
+def count_graph_run(replayed: bool) -> None:
+    """While recording, add one Gauss-Newton sweep or marginal to the
+    innermost open span: ``replayed`` when it ran as a captured CUDA graph,
+    else ``eager``."""
+    if _OPEN:
+        if replayed:
+            _OPEN[-1].replayed += 1
+        else:
+            _OPEN[-1].eager += 1
 
 
 def to_device(x, device, dtype=None):

@@ -218,3 +218,251 @@ def test_services(problem):
     _assert_cov_blocks(got.numpy(), np.asarray(j_query(jcarry, jdims,
                                                        jnp.asarray(keys))))
     assert np.trace(cov[0].numpy()) > np.trace(got[-1].numpy())
+
+
+# ---- the update before its sweep and marginal could be captured, frozen ----
+# (host values copied in: the scale prior's weights, the first step and
+# damping, the marginal's unit columns by index assignment)
+
+
+def _frozen_normal_equations(state, config, need_b=True):
+    from sonar_slam_torch.graph import factor_graph as fg
+
+    K = config.max_poses
+    dev = state.poses.device
+    A, r, J0, r0 = fg._linear_system(state, config)
+    H, b, JtJ, Jtr = fg._products(A, r if need_b else None, J0, r0)
+    if config.estimate_scale:
+        sp = config.scale_prior_sigma
+        sx, sy = sp if isinstance(sp, (tuple, list)) else (sp, sp)
+        w_s = torch.tensor([1.0 / sx**2, 1.0 / sy**2], dtype=torch.float32,
+                           device=dev)
+        s = torch.arange(3 * K, 3 * K + 2, device=dev)
+        H[..., s, s] += w_s
+        if b is not None:
+            b[..., s] += w_s * (state.log_scale - state.log_scale_anchor)
+    H[..., :3, :3] += JtJ
+    if b is not None:
+        b[..., :3] += Jtr
+    valid = torch.repeat_interleave(
+        torch.arange(K, device=dev) < state.num_poses[..., None], 3, dim=-1)
+    if config.estimate_scale:
+        valid = torch.cat([valid, torch.ones(valid.shape[:-1] + (2,),
+                                             dtype=torch.bool, device=dev)],
+                          dim=-1)
+    H = H + torch.diag_embed(torch.where(valid, config.damping, 1.0).to(
+        torch.float32))
+    return H, b
+
+
+def _frozen_gn_step(state, poses, log_scale, prev_delta, lam, config):
+    from sonar_slam_torch.geometry import se2_retract
+    from sonar_slam_torch.graph import factor_graph as fg
+
+    K = config.max_poses
+    dev = poses.device
+    valid = (torch.arange(K, device=dev) < state.num_poses[..., None])[..., None]
+    st = state._replace(poses=poses, log_scale=log_scale)
+    H, b = _frozen_normal_equations(st, config)
+    Hd = H + lam[..., None, None] * torch.diag_embed(
+        torch.diagonal(H, dim1=-2, dim2=-1))
+    delta = -fg._scaled_cho_solve(fg._scaled_cho_factor(Hd), b)
+    finite = torch.all(torch.isfinite(delta), dim=-1)
+    delta = torch.where(finite[..., None], delta, torch.zeros_like(delta))
+    if config.estimate_scale:
+        ds = delta[..., 3 * K: 3 * K + 2]
+        delta = delta[..., : 3 * K]
+    else:
+        ds = torch.zeros(delta.shape[:-1] + (2,), device=dev)
+    delta = delta.reshape(delta.shape[:-1] + (K, 3))
+    vdelta = torch.where(valid, delta, torch.zeros_like(delta))
+    if config.step_clamp_t > 0.0:
+        big_t = torch.amax(torch.abs(vdelta[..., :2]), dim=(-2, -1))
+        big_r = torch.amax(torch.abs(vdelta[..., 2]), dim=-1)
+        shrink = torch.clamp(torch.minimum(
+            config.step_clamp_t / torch.clamp(big_t, min=1e-12),
+            config.step_clamp_r / torch.clamp(big_r, min=1e-12)), max=1.0)
+        delta = delta * shrink[..., None, None]
+        vdelta = vdelta * shrink[..., None, None]
+        ds = ds * shrink[..., None]
+    log_scale = log_scale + ds
+    poses = torch.where(valid, se2_retract(poses, delta), poses)
+    max_delta = torch.maximum(torch.amax(torch.abs(vdelta), dim=(-2, -1)),
+                              torch.amax(torch.abs(ds), dim=-1))
+    max_delta = torch.where(finite, max_delta,
+                            torch.full_like(max_delta, float("inf")))
+    grew = finite & (max_delta > prev_delta * 1.05)
+    lam = torch.where(
+        ~finite, torch.clamp(lam, min=1e-6) * 100.0,
+        torch.where(grew, torch.clamp(torch.clamp(lam, min=1e-8) * 30.0,
+                                      max=1.0), lam * 0.25))
+    return poses, log_scale, max_delta, lam
+
+
+def _frozen_optimize(state, config):
+    poses, log_scale = state.poses, state.log_scale
+    prev_delta = torch.tensor(float("inf"))
+    lam = torch.tensor(0.0)
+    sweeps = 0
+    for _ in range(config.gn_iters):
+        poses, log_scale, prev_delta, lam = _frozen_gn_step(
+            state, poses, log_scale, prev_delta, lam, config)
+        sweeps += 1
+        if not bool(prev_delta > config.convergence_tol):
+            break
+    return state._replace(poses=poses, log_scale=log_scale), sweeps
+
+
+def _frozen_marginal(state, keys, config):
+    from sonar_slam_torch.graph import factor_graph as fg
+
+    K = config.max_poses
+    H, _ = _frozen_normal_equations(state, config, need_b=False)
+    Lf = fg._scaled_cho_factor(H)
+    if isinstance(keys, int):
+        k = torch.full((1,), keys, dtype=torch.int64)
+    else:
+        k = keys.reshape(-1).to(dtype=torch.int64)
+    n = 3 * K + (2 if config.estimate_scale else 0)
+    M = k.shape[0]
+    rows = (3 * k[:, None] + torch.arange(3)).reshape(-1)
+    e = torch.zeros((n, 3 * M), dtype=torch.float32)
+    e[rows, torch.arange(3 * M)] = 1.0
+    cols = fg._scaled_cho_solve(Lf, e)
+    cov = cols[..., rows, :].reshape(cols.shape[:-2] + (M, 3, M, 3))
+    cov = cov.diagonal(dim1=-4, dim2=-2).movedim(-1, -3)
+    return cov if isinstance(keys, torch.Tensor) and keys.ndim == 1 else cov[..., 0, :, :]
+
+
+@pytest.mark.parametrize("estimate_scale,nan_factor",
+                         [(False, False), (True, False), (True, True)])
+def test_update_keeps_its_bits(problem, estimate_scale, nan_factor):
+    """The update as it runs now (no host value copied in, so that a card
+    can capture it) against the frozen update before: the same bits for
+    the poses, the scales and the marginal, and the same number of sweeps
+    (the early-exit reads)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sonar_slam_torch.utils import CodeTimer, reset_timing, trace_records
+
+    steps, loops = problem
+    cfg = tgr.GraphConfig(max_poses=12, max_factors=16, gn_iters=6,
+                          convergence_tol=1e-7, estimate_scale=estimate_scale,
+                          scale_prior_sigma=(0.05, 0.01))
+    g = _build(tgr, cfg, steps, loops, nan_factor=nan_factor)
+    want, sweeps = _frozen_optimize(g, cfg)
+    want_cov = _frozen_marginal(want, 9, cfg)
+    reset_timing()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with CodeTimer("update", silent=True):
+            got, cov = tgr.optimize_with_marginal(g, 9, cfg)
+    rec = next(r for r in trace_records() if r.name == "update")
+    reset_timing()
+    assert torch.isfinite(got.poses).all()
+    for a, b in ((got.poses, want.poses), (got.log_scale, want.log_scale),
+                 (cov, want_cov)):  # bits, NaN included (the NaN factor's)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert rec.reads == sweeps and rec.eager == sweeps + 1
+
+
+def test_marginal_of_several_keys_keeps_its_bits(problem):
+    steps, loops = problem
+    cfg = tgr.GraphConfig(max_poses=12, max_factors=16, gn_iters=4,
+                          estimate_scale=True, scale_prior_sigma=(0.05, 0.01))
+    g = tgr.optimize(_build(tgr, cfg, steps, loops), cfg)
+    keys = torch.tensor([0, 4, 9, 4])
+    got = tgr.marginal_covariance(g, keys, cfg)
+    assert got.shape == (4, 3, 3)
+    assert torch.equal(got, _frozen_marginal(g, keys, cfg))
+
+
+class _StandInGraph:
+    """A CUDA graph stood in for on the CPU: its capture runs nothing (the
+    buffers it wrote are put back) and its replay runs the captured body."""
+
+    def __init__(self):
+        self.body = self.saved = None
+
+    def capture_begin(self, pool=None, capture_error_mode=None):
+        rep = _StandInGraph.owner
+        held = (list(rep.bufs) + [rep.prev_delta, rep.lam]
+                + list(rep.keys.values()) + list(rep.covs.values()))
+        self.saved = [(t, t.clone()) for t in held]
+
+    def capture_end(self):
+        for t, c in self.saved:
+            t.copy_(c)
+
+    def replay(self):
+        self.body()
+
+
+@pytest.mark.parametrize("estimate_scale", [False, True])
+def test_replayed_path_bookkeeping(problem, monkeypatch, estimate_scale):
+    """The path a card takes (``_Replayed``), run on the CPU with a stand-in
+    for the CUDA graphs: the first update of a configuration runs its sweep
+    and marginal op by op and captures them, later updates replay them; the
+    results are cloned out of the static buffers and equal the op-by-op
+    update's bits, sweep counts and all, over graphs of growing size and a
+    marginal of several keys."""
+    import contextlib
+
+    from sonar_slam_torch.graph import factor_graph as fg
+
+    class Stream:
+        def __init__(self, device=None):
+            self.device = device
+
+        def wait_stream(self, other):
+            pass
+
+    run = fg._Replayed._run
+
+    def tracked(rep, name, body):
+        _StandInGraph.owner = rep
+        new = name not in rep.graphs
+        run(rep, name, body)
+        if new:
+            rep.graphs[name].body = body
+
+    steps, loops = problem
+    cfg = tgr.GraphConfig(max_poses=12, max_factors=16, gn_iters=5,
+                          convergence_tol=1e-7, estimate_scale=estimate_scale,
+                          scale_prior_sigma=(0.05, 0.01))
+    graphs = [_build(tgr, cfg, steps[:n], loops if n == 9 else [])
+              for n in (4, 7, 9)]
+    keys = torch.tensor([0, 3, 4])
+    want = []
+    for g in graphs:
+        st, cov = tgr.optimize_with_marginal(g, 4, cfg)
+        want.append((st, cov, tgr.marginal_covariance(g, keys, cfg)))
+    # a configuration that differs only in its sweep count and tolerance
+    short = cfg._replace(gn_iters=2, convergence_tol=1e-3)
+    want_short = tgr.optimize_with_marginal(graphs[-1], 4, short)
+    monkeypatch.setattr(fg, "_REPLAYED", {})
+    monkeypatch.setattr(fg._Replayed, "_run", tracked)
+    monkeypatch.setattr(fg, "_replayable", lambda state: True)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None,
+                        raising=False)
+    for n, (g, (ws, wcov, wmany)) in enumerate(zip(graphs + graphs, want + want)):
+        st, cov = tgr.optimize_with_marginal(g, 4, cfg)
+        many = tgr.marginal_covariance(g, keys, cfg)
+        for a, b in ((st.poses, ws.poses), (st.log_scale, ws.log_scale),
+                     (cov, wcov), (many, wmany)):
+            assert torch.equal(a, b), n
+        rep = fg._replayed(g, cfg)
+        assert set(rep.graphs) == {"sweep", 1, 3}
+        assert st.poses is not rep.bufs.poses and cov.shape == (3, 3)
+        assert st.f_i is g.f_i  # the state's other fields are the caller's
+    # it shares the graphs, and runs its own sweep count and tolerance
+    st, cov = tgr.optimize_with_marginal(graphs[-1], 4, short)
+    assert fg._replayed(graphs[-1], short) is rep
+    assert torch.equal(st.poses, want_short[0].poses)
+    assert torch.equal(cov, want_short[1])
+    assert not torch.equal(st.poses, want[-1][0].poses)
+

@@ -179,10 +179,41 @@ def test_reads_of_icp_and_gn_land_in_their_span():
     iters = int(res.iterations)
     assert 1 <= recs["icp_call"].reads <= 6
     assert recs["icp_call"].reads in (iters, iters + 1)
-    # two device constants, then one early-exit read per sweep
-    assert 3 <= recs["gn_call"].reads <= 2 + cfg.gn_iters
+    # one early-exit read per sweep, each sweep counted as run op by op
+    assert 1 <= recs["gn_call"].reads <= cfg.gn_iters
+    assert recs["gn_call"].eager == recs["gn_call"].reads
+    assert recs["gn_call"].replayed == 0
     assert recs["icp_call"].parent == recs["gn_call"].parent
     assert all(r.read_ns >= 0 for r in recs.values())
+
+
+@pytest.mark.parametrize("estimate_scale", [False, True])
+def test_optimize_with_marginal_reads_only_its_early_exits(estimate_scale):
+    """One update as the step runs it: a read of each sweep's early exit
+    and nothing else (no host value is copied in); each sweep and the
+    marginal counted, op by op on the CPU."""
+    from sonar_slam_torch.graph import optimize_with_marginal
+
+    cfg = GraphConfig(max_poses=6, max_factors=8, gn_iters=5,
+                      convergence_tol=1e-9, estimate_scale=estimate_scale,
+                      scale_prior_sigma=(0.05, 0.01))
+    g = graph_init(cfg, "cpu")
+    g = add_prior(g, torch.zeros(3), sigmas_to_sqrt_info(torch.ones(3) * 0.1))
+    for k in range(1, 4):
+        g = add_between(g, k - 1, k, torch.tensor([1.0, 0.0, 0.1]),
+                        sigmas_to_sqrt_info(torch.ones(3) * 0.1),
+                        scaled=estimate_scale)
+        g = set_pose_estimate(g, k, torch.tensor([0.9 * k, 0.1, 0.0]))
+    reset_timing()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with CodeTimer("update", silent=True):
+            _, cov = optimize_with_marginal(g, 3, cfg)
+    rec = next(r for r in trace_records() if r.name == "update")
+    reset_timing()
+    assert cov.shape == (3, 3)
+    assert 1 <= rec.reads <= cfg.gn_iters
+    assert rec.eager == rec.reads + 1  # the sweeps and the marginal
+    assert rec.replayed == 0
 
 
 def test_spans_share_the_profilers_clock():
@@ -210,42 +241,45 @@ def test_code_timer_keeps_its_report_and_took_without_records():
 # ---- the benchmark's readers of the records ----
 
 
-def _rec(name, start, end, parent, reads=0, read_ns=0):
+def _rec(name, start, end, parent, reads=0, read_ns=0, runs=(0, 0)):
     r = timing.Record(name, parent, None, 0)
     r.start_ns, r.end_ns, r.reads, r.read_ns = start, end, reads, read_ns
+    r.replayed, r.eager = runs
     return r
 
 
 def _synthetic_records():
-    """Two steps and a refinement inside the window (0, 100000), a step
-    outside it."""
+    """Two steps (the second inside a scan) and a refinement inside the
+    window (0, 100000), a step outside it."""
     R = []
 
-    def add(name, start, end, parent=None, reads=0, read_ns=0):
-        R.append(_rec(name, start, end, parent, reads, read_ns))
+    def add(name, start, end, parent=None, reads=0, read_ns=0, runs=(0, 0)):
+        R.append(_rec(name, start, end, parent, reads, read_ns, runs))
         return len(R) - 1
 
     a = add("keyframe_step", 2000, 12000)
     add("ssm.sampling", 2500, 4000, a)
     add("ssm.icp", 4000, 7000, a, 3, 600)
-    add("graph", 7000, 9000, a, 2, 400)
+    add("graph", 7000, 9000, a, 2, 400, (3, 1))
     add("nssm.sampling", 9000, 10000, a)
     add("nssm.icp", 10000, 11000, a, 1, 100)
     add("pcm", 11000, 11500, a, 1, 100)
-    b = add("keyframe_step", 20000, 26000, reads=1, read_ns=50)
+    scan = add("slam_scan", 19000, 27000)
+    b = add("keyframe_step", 20000, 26000, scan, reads=1, read_ns=50)
     add("ssm.sampling", 20500, 22000, b)
     add("ssm.icp", 22000, 24000, b, 2, 250)
-    add("graph", 24000, 25500, b, 1, 100)
+    add("graph", 24000, 25500, b, 1, 100, (2, 0))
     f = add("refine", 30000, 60000)
     add("refine.remeasure", 31000, 35000, f, 4, 10)
-    add("refine.optimize", 35000, 40000, f, 3, 10)
+    add("refine.optimize", 35000, 40000, f, 3, 10, (3, 0))
     add("refine.chain", 40000, 45000, f, 2, 10)
     add("refine.optimize", 45000, 47000, f, 1, 10)
     add("refine.sweep", 47000, 50000, f, 1, 10)
     add("refine.prune", 50000, 52000, f, 1, 10)
-    add("refine.optimize", 52000, 55000, f, 1, 10)
+    add("refine.optimize", 52000, 55000, f, 1, 10, (1, 1))
     c = add("keyframe_step", 200000, 210000)
     add("ssm.icp", 200500, 209000, c, 50, 5000)
+    add("graph", 209000, 209500, c, 1, 10, (0, 9))
     return R
 
 
@@ -278,11 +312,16 @@ def test_metric_readers_on_synthetic_records(monkeypatch):
                                     "sweep": 3e-6, "prune": 2e-6,
                                     "optimize": 10e-6})
     assert _reader("host_reads.refine")(ctx) == 13
+    # the two steps in the window: 3 + 2 replayed, 1 run op by op
+    assert _reader("gn_replay_share.online")(ctx) == pytest.approx(5 / 6)
+    # the scan's step 2 and the refinement's 3 + 1 replayed, 1 op by op
+    assert _reader("gn_replay_share.replay")(ctx) == pytest.approx(6 / 7)
 
 
 @pytest.mark.parametrize("name", [
     "phase_ms.ssm_icp", "phase_ms.step_other", "host_reads_per_kf.online",
-    "host_wait_share.online", "refine_phase_s.chain", "host_reads.refine"])
+    "host_wait_share.online", "refine_phase_s.chain", "host_reads.refine",
+    "gn_replay_share.online", "gn_replay_share.replay"])
 def test_metric_readers_find_nothing_to_read(monkeypatch, name):
     """No traced run, no records, or a program without the tracer: None."""
     read = _reader(name)
@@ -293,3 +332,27 @@ def test_metric_readers_find_nothing_to_read(monkeypatch, name):
     assert read(ctx) is None
     monkeypatch.delattr(timing, "trace_records")
     assert read(ctx) is None
+
+
+@pytest.mark.parametrize("name", ["gn_replay_share.online",
+                                  "gn_replay_share.replay"])
+def test_replay_share_silent_without_the_counter(monkeypatch, name):
+    """Records of a tracer that counts no sweeps (no ``replayed`` or
+    ``eager``), or spans that ran none: None."""
+
+    class Bare:
+        def __init__(self, rec):
+            for k in ("name", "start_ns", "end_ns", "parent", "request",
+                      "reads", "read_ns"):
+                setattr(self, k, getattr(rec, k))
+
+    recs = _synthetic_records()
+    ctx = types.SimpleNamespace(
+        trace=types.SimpleNamespace(spans={"trace": [(0, 100000)]}))
+    monkeypatch.setattr(timing, "trace_records",
+                        lambda: [Bare(r) for r in recs])
+    assert _reader(name)(ctx) is None
+    for r in recs:
+        r.replayed = r.eager = 0
+    monkeypatch.setattr(timing, "trace_records", lambda: list(recs))
+    assert _reader(name)(ctx) is None

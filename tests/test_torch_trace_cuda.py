@@ -9,7 +9,9 @@ Marked ``cuda``: they skip without a card (``python -m pytest --noconftest
   aggregation, the DVL scale and the SSM covariance samples on (the
   offline cell's path), runs under ``torch.cuda.set_sync_debug_mode("warn")``
   while a profiler records: the synchronizing warnings of each step equal
-  the host reads its recorded spans count, so no read site is missed.
+  the host reads its recorded spans count, so no read site is missed. The
+  first update captures the Gauss-Newton sweep and the marginal; the later
+  steps replay them, and their reads still equal their syncs.
 * The benchmark's traced stretch (``slam_bench/harness/trace.py``, a
   profiler of CUDA activity alone) turns the tracer's recording on.
 """
@@ -40,20 +42,21 @@ def card():
     return torch.device("cuda:0")
 
 
-def step_reads(records, root: int) -> int:
-    """Host reads of the span ``root`` and of every span inside it."""
+def step_reads(records, root: int, field: str = "reads") -> int:
+    """Host reads (or another count of the records, ``field``) of the span
+    ``root`` and of every span inside it."""
     held = {root}
-    total = records[root].reads
+    total = getattr(records[root], field)
     for i in range(root + 1, len(records)):
         if records[i].parent in held:
             held.add(i)
-            total += records[i].reads
+            total += getattr(records[i], field)
     return total
 
 
 def counted_steps(variant: str, dev):
-    """(syncs, host reads, names of the recorded spans) of every keyframe
-    step of a replay without refinement."""
+    """(syncs, host reads, names of the recorded spans, replayed sweeps and
+    marginals) of every keyframe step of a replay without refinement."""
     sim, dims, params_on, fcfg = chip_smoke.small_config(seed=0)
     dims = dataclasses.replace(dims, **VARIANTS[variant])
     bag = simulate_bag(sim)
@@ -68,7 +71,8 @@ def counted_steps(variant: str, dev):
         syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
         recs = timing.trace_records()
         rows.append((syncs, step_reads(recs, first),
-                     {r.name for r in recs[first:]}))
+                     {r.name for r in recs[first:]},
+                     step_reads(recs, first, "replayed")))
         return out
 
     from torch.profiler import ProfilerActivity, profile
@@ -96,8 +100,10 @@ def counted_steps(variant: str, dev):
 def test_host_reads_equal_cuda_syncs(card, variant):
     rows = counted_steps(variant, card)
     assert len(rows) >= 10
-    assert [s for s, _, _ in rows] == [r for _, r, _ in rows], rows
-    names = set().union(*(n for _, _, n in rows))
+    assert [s for s, _, _, _ in rows] == [r for _, r, _, _ in rows], rows
+    # every step after the first replays its update's sweeps and marginal
+    assert all(p >= 2 for _, _, _, p in rows[1:]), rows
+    names = set().union(*(n for _, _, n, _ in rows))
     assert {"keyframe_step", "ssm.sampling", "ssm.icp", "graph",
             "nssm.sampling", "nssm.icp", "pcm"} <= names
 
