@@ -1,0 +1,8 @@
+"""kalman_s.prepare (s): the self time of the program's ``kalman.prepare``
+spans under its ``dr_gate`` span in the traced pass."""
+
+from slam_bench.harness import kalman_records
+
+
+def read(ctx):
+    return kalman_records.phase_s(ctx, "kalman.prepare")

@@ -24,6 +24,12 @@ the host and never reads the device:
 * the pose integral, which reads the filter but never feeds it, runs after
   the loop as cumulative sums over the recorded states.
 
+The three phases are the tracer's spans ``kalman.prepare``,
+``kalman.filter`` and ``kalman.integrate`` (``utils/timing.py``); the
+filter's span counts the events it ran and the DVL events its gate
+skipped (``count_filter_events``), and the host's waits on the device go
+through ``host_read`` and ``to_device``.
+
 The sums run in other orders than the sequential float32 scan, so the poses
 agree with it to float32 rounding (``tests/test_torch_frontends.py``).
 """
@@ -35,6 +41,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.timing import CodeTimer, count_filter_events, host_read, to_device
 
 EVENT_IMU, EVENT_DVL, EVENT_DEPTH, EVENT_GYRO = 0, 1, 2, 3
 
@@ -76,7 +84,7 @@ class KalmanConfig(NamedTuple):
              0.01, 0.01]
 
         def t(m):
-            return torch.as_tensor(np.asarray(m, np.float32), device=device)
+            return to_device(np.asarray(m, np.float32), device)
 
         return KalmanConfig(
             A_imu=t(A), Q=t(np.diag(q)),
@@ -134,19 +142,22 @@ def kalman_scan(events_type: np.ndarray, events_z: torch.Tensor,
     imu_ev = np.nonzero(types == EVENT_IMU)[0]
     gyro_ev = np.nonzero(types == EVENT_GYRO)[0]
 
-    # the IMU measurement: offset roll, yaw zeroed at the first IMU event
-    z = z.clone()
-    if len(imu_ev):
-        zi = z[imu_ev]
-        yaw0 = zi[0, 2]
-        z[imu_ev] = torch.stack([zi[:, 0] + cfg.imu_offset, zi[:, 1],
-                                 zi[:, 2] - yaw0], dim=-1)
-    # the DVL over-speed gate reads z alone: decide it here, on the host
-    dvl_ok = np.ones(T, bool)
-    dvl_ev = np.nonzero(types == EVENT_DVL)[0]
-    if len(dvl_ev):
-        over = (z[dvl_ev].abs() > cfg.dvl_max_velocity).any(dim=-1)
-        dvl_ok[dvl_ev] = ~over.cpu().numpy()
+    with CodeTimer("kalman.prepare", silent=True):
+        imu_t = to_device(imu_ev, dev)
+        # the IMU measurement: offset roll, yaw zeroed at the first IMU event
+        z = z.clone()
+        if len(imu_ev):
+            zi = z[imu_t]
+            yaw0 = zi[0, 2]
+            z[imu_t] = torch.stack([zi[:, 0] + cfg.imu_offset, zi[:, 1],
+                                    zi[:, 2] - yaw0], dim=-1)
+        # the DVL over-speed gate reads z alone: decide it here, on the host
+        dvl_ok = np.ones(T, bool)
+        dvl_ev = np.nonzero(types == EVENT_DVL)[0]
+        if len(dvl_ev):
+            over = (z[to_device(dvl_ev, dev)].abs()
+                    > cfg.dvl_max_velocity).any(dim=-1)
+            dvl_ok[dvl_ev] = ~host_read(over.cpu).numpy()
 
     sensors = {EVENT_IMU: (cfg.H_imu, cfg.R_imu),
                EVENT_DVL: (cfg.H_dvl, cfg.R_dvl),
@@ -160,53 +171,58 @@ def kalman_scan(events_type: np.ndarray, events_z: torch.Tensor,
     yaw_gyro = torch.zeros((T + 1,), dtype=f32, device=dev)  # after gyro events
     yg = yaw_gyro[T]
     zrows = z.unbind(0)
-    for e in range(T):
-        kind = int(types[e])
-        if kind == EVENT_DVL and not dvl_ok[e]:
-            continue
-        if kind == EVENT_IMU:
-            x = torch.mv(A, x)
-            P = torch.addmm(Q, torch.mm(A, P), AT)
-        H, R, HT = sensors[kind]
-        S = torch.addmm(R, torch.mm(H, P), HT)
-        K = torch.mm(torch.mm(P, HT), _inv3(S))
-        y = torch.addmv(zrows[e], H, x, alpha=-1.0)
-        if kind == EVENT_IMU:
-            x = torch.addmv(x, K, y, out=hist[e])
-        else:
-            x = torch.addmv(x, K, y)
-        P = torch.addmm(P, torch.mm(K, H), P, alpha=-1.0)
-        if kind == EVENT_GYRO:
-            # added in stream order, as the sequential scan adds
-            yg = torch.add(yg, x[11], out=yaw_gyro[e])
+    with CodeTimer("kalman.filter", silent=True):
+        for e in range(T):
+            kind = int(types[e])
+            if kind == EVENT_DVL and not dvl_ok[e]:
+                continue
+            if kind == EVENT_IMU:
+                x = torch.mv(A, x)
+                P = torch.addmm(Q, torch.mm(A, P), AT)
+            H, R, HT = sensors[kind]
+            S = torch.addmm(R, torch.mm(H, P), HT)
+            K = torch.mm(torch.mm(P, HT), _inv3(S))
+            y = torch.addmv(zrows[e], H, x, alpha=-1.0)
+            if kind == EVENT_IMU:
+                x = torch.addmv(x, K, y, out=hist[e])
+            else:
+                x = torch.addmv(x, K, y)
+            P = torch.addmm(P, torch.mm(K, H), P, alpha=-1.0)
+            if kind == EVENT_GYRO:
+                # added in stream order, as the sequential scan adds
+                yg = torch.add(yg, x[11], out=yaw_gyro[e])
+        gated = int(np.count_nonzero(~dvl_ok))
+        count_filter_events(T - gated, gated)
 
     # the pose after each IMU event: velocity integrated over dt_imu, turned
     # by the previous pose's yaw (or by the FOG yaw integrated so far)
-    poses = torch.zeros((T, 6), dtype=f32, device=dev)
-    if len(imu_ev):
-        xi = hist[imu_ev]
-        if cfg.use_gyro:
-            # the FOG yaw before each IMU event: after the last gyro event
-            # before it (slot T holds the initial 0)
-            g = np.searchsorted(gyro_ev, imu_ev) - 1
-            g = np.where(g >= 0, gyro_ev[np.clip(g, 0, None)], T)
-            yaw = yaw_gyro[torch.as_tensor(g, device=dev)]
-            frame_yaw = yaw
-        else:
-            yaw = xi[:, 5]
-            frame_yaw = torch.cat([torch.zeros(1, dtype=f32, device=dev),
-                                   yaw[:-1]])
-        tx, ty = xi[:, 6] * cfg.dt_imu, xi[:, 7] * cfg.dt_imu
-        cy, sy = torch.cos(frame_yaw), torch.sin(frame_yaw)
-        # one scan of two rows, the same bits every run on a card (a single
-        # long row goes through CUB's timing-dependent look-back; gyro.py)
-        px, py = torch.cumsum(torch.stack([cy * tx - sy * ty,
-                                           sy * tx + cy * ty]), dim=1)
-        pose_imu = torch.stack([px, py, 0.0 * px, xi[:, 3], xi[:, 4], yaw],
-                               dim=-1)
-        # forward fill: each event holds the pose of the last IMU event
-        last = np.searchsorted(imu_ev, np.arange(T), side="right") - 1
-        started = last >= 0
-        poses[torch.as_tensor(np.nonzero(started)[0], device=dev)] = pose_imu[
-            torch.as_tensor(last[started], device=dev)]
+    with CodeTimer("kalman.integrate", silent=True):
+        poses = torch.zeros((T, 6), dtype=f32, device=dev)
+        if len(imu_ev):
+            xi = hist[imu_t]
+            if cfg.use_gyro:
+                # the FOG yaw before each IMU event: after the last gyro
+                # event before it (slot T holds the initial 0)
+                g = np.searchsorted(gyro_ev, imu_ev) - 1
+                g = np.where(g >= 0, gyro_ev[np.clip(g, 0, None)], T)
+                yaw = yaw_gyro[to_device(g, dev)]
+                frame_yaw = yaw
+            else:
+                yaw = xi[:, 5]
+                frame_yaw = torch.cat([torch.zeros(1, dtype=f32, device=dev),
+                                       yaw[:-1]])
+            tx, ty = xi[:, 6] * cfg.dt_imu, xi[:, 7] * cfg.dt_imu
+            cy, sy = torch.cos(frame_yaw), torch.sin(frame_yaw)
+            # one scan of two rows, the same bits every run on a card (a
+            # single long row goes through CUB's timing-dependent look-back;
+            # gyro.py)
+            px, py = torch.cumsum(torch.stack([cy * tx - sy * ty,
+                                               sy * tx + cy * ty]), dim=1)
+            pose_imu = torch.stack([px, py, 0.0 * px, xi[:, 3], xi[:, 4],
+                                    yaw], dim=-1)
+            # forward fill: each event holds the pose of the last IMU event
+            last = np.searchsorted(imu_ev, np.arange(T), side="right") - 1
+            started = last >= 0
+            poses[to_device(np.nonzero(started)[0], dev)] = pose_imu[
+                to_device(last[started], dev)]
     return x, P, poses

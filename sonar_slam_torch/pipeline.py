@@ -69,7 +69,7 @@ from .slam.core import KeyframeInput, SlamDims, SlamParams, select_keyframes, sl
 from .slam.frontend import FeatureConfig, FeatureExtractor, corroborate
 from .slam.dual_sonar import ElevationSpec, fuse_frames_global
 from .slam.refine import RefineParams, check_mesh_dims, refine_loops
-from .utils.timing import CodeTimer
+from .utils.timing import CodeTimer, host_read, to_device
 
 
 class ReplayResult(NamedTuple):
@@ -117,10 +117,9 @@ def _kalman_odometry(bag: SyntheticBag, kalman_config: KalmanConfig, device):
     z = np.concatenate(zs).astype(np.float32)
     order = np.argsort(times, kind="stable")
     times, types, z = times[order], types[order], z[order]
-    _, _, poses = kalman_scan(types, torch.as_tensor(z, device=device),
-                              kalman_config)
+    _, _, poses = kalman_scan(types, to_device(z, device), kalman_config)
     imu = np.nonzero(types == EVENT_IMU)[0]
-    return times[imu], poses[torch.as_tensor(imu, device=device)]
+    return times[imu], poses[to_device(imu, device)]
 
 
 def default_kalman_config(imu_time: np.ndarray, device) -> KalmanConfig:
@@ -130,7 +129,9 @@ def default_kalman_config(imu_time: np.ndarray, device) -> KalmanConfig:
     cfg = KalmanConfig.default(device)._replace(imu_offset=0.0)
     dt = float(np.median(np.diff(imu_time)))
     A = cfg.A_imu.clone()
-    A[0, 6] = A[1, 7] = A[3, 9] = A[4, 10] = dt
+    for ij in ((0, 6), (1, 7), (3, 9), (4, 10)):
+        # a host value written into a device tensor: a copy that waits
+        host_read(A.__setitem__, ij, dt)
     return cfg._replace(dt_imu=dt, A_imu=A)
 
 

@@ -19,7 +19,10 @@ while recording, it adds one read and the nanoseconds the host blocked in it
 to the innermost open span (:func:`to_device` for a copy to the device).
 :func:`count_graph_run` counts each Gauss-Newton sweep and each marginal of
 the factor graph on the innermost open span, as ``replayed`` (a captured
-CUDA graph) or ``eager``. With no profiler active nothing is recorded and
+CUDA graph) or ``eager``; :func:`count_filter_events` counts the Kalman
+filter's events on it, as ``filtered`` (run through the filter) or
+``gated`` (DVL events the over-speed gate skipped). With no profiler active
+nothing is recorded and
 no device memory is touched: a span costs one profiler check and two clock
 reads, a host read one list check. :func:`trace_records` returns the
 records; :func:`reset_timing` clears them and the report.
@@ -72,10 +75,11 @@ class Record:
     root), ``reads`` and ``read_ns`` the host reads made directly in it and
     the nanoseconds the host blocked in them, ``replayed`` and ``eager`` the
     factor graph's sweeps and marginals run directly in it as captured CUDA
-    graphs and op by op."""
+    graphs and op by op, ``filtered`` and ``gated`` the Kalman filter's
+    events run in it and the DVL events its gate skipped."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "request", "reads",
-                 "read_ns", "replayed", "eager", "index")
+                 "read_ns", "replayed", "eager", "filtered", "gated", "index")
 
     def __init__(self, name, parent, request, index):
         self.name = name
@@ -86,13 +90,16 @@ class Record:
         self.read_ns = 0
         self.replayed = 0
         self.eager = 0
+        self.filtered = 0
+        self.gated = 0
         self.index = index
 
     def __repr__(self):
         return (f"Record({self.name!r}, {self.start_ns}, {self.end_ns}, "
                 f"parent={self.parent}, request={self.request}, "
                 f"reads={self.reads}, read_ns={self.read_ns}, "
-                f"replayed={self.replayed}, eager={self.eager})")
+                f"replayed={self.replayed}, eager={self.eager}, "
+                f"filtered={self.filtered}, gated={self.gated})")
 
 
 def _open(name: str, request) -> Record:
@@ -173,6 +180,15 @@ def count_graph_run(replayed: bool) -> None:
             _OPEN[-1].replayed += 1
         else:
             _OPEN[-1].eager += 1
+
+
+def count_filter_events(filtered: int, gated: int) -> None:
+    """While recording, add to the innermost open span the Kalman filter's
+    events: ``filtered`` run through the filter, ``gated`` DVL events its
+    over-speed gate skipped."""
+    if _OPEN:
+        _OPEN[-1].filtered += filtered
+        _OPEN[-1].gated += gated
 
 
 def to_device(x, device, dtype=None):

@@ -9,6 +9,10 @@
   step; the replay's stages and refinement's phases.
 * Host reads land in the innermost open span; spans share the profiler's
   clock; ``pipeline.replay``'s ``stage_s`` keeps its keys.
+* The Kalman front end's three spans, children of ``dr_gate``, and its
+  counter of the events filtered and gated; with and without a profiler its
+  odometry is the frozen pre-span filter's (``kalman_frozen.py``) bit for
+  bit.
 * The benchmark's readers of these records on a synthetic record list.
 """
 
@@ -16,6 +20,7 @@ import dataclasses
 import os
 import sys
 import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -23,6 +28,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke
+import kalman_frozen
+from sonar_slam_torch import pipeline
 from sonar_slam_torch.cloud import ICPConfig, icp
 from sonar_slam_torch.graph import (GraphConfig, add_between, add_prior,
                                     graph_init)
@@ -238,6 +245,67 @@ def test_code_timer_keeps_its_report_and_took_without_records():
     assert trace_records() == []
 
 
+# ---- the Kalman front end ----
+
+
+@pytest.fixture(scope="module")
+def kalman_replay():
+    """A Kalman replay of a 40 s survey with a 200 Hz IMU under a profiler:
+    (bag, result, records)."""
+    sim, dims, params_on, fcfg = chip_smoke.small_config(seed=0)
+    bag = simulate_bag(dataclasses.replace(sim, duration=40.0, imu_rate=200.0))
+    reset_timing()
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = replay(bag, fcfg, params_on("cpu"), dims, "cpu",
+                     frontend="kalman")
+    recs = trace_records()
+    reset_timing()
+    return bag, res, recs
+
+
+def test_kalman_spans_are_children_of_dr_gate(kalman_replay):
+    _, _, recs = kalman_replay
+    gate = [i for i, r in enumerate(recs) if r.name == "dr_gate"]
+    assert len(gate) == 1
+    kids = [r for r in recs if r.parent == gate[0]]
+    assert [r.name for r in kids] == ["kalman.prepare", "kalman.filter",
+                                      "kalman.integrate"]
+    assert not any(r.name.startswith("kalman.") for r in recs
+                   if r.parent != gate[0])
+    outer = recs[gate[0]]
+    for a, b in zip(kids, kids[1:]):
+        assert a.end_ns <= b.start_ns
+    assert all(outer.start_ns <= r.start_ns and r.end_ns <= outer.end_ns
+               for r in kids)
+    # the loop never waits for the device: the IMU and DVL indices and the
+    # gate's read before it, the forward fill's two indices after it
+    assert [r.reads for r in kids] == [3, 0, 2]
+
+
+def test_kalman_counter_counts_events_filtered_and_gated(kalman_replay):
+    bag, _, recs = kalman_replay
+    over = int(np.sum(np.any(np.abs(bag.dvl_vel) > 0.5, axis=-1)))
+    events = len(bag.imu_time) + len(bag.dvl_time) + len(bag.depth_time)
+    assert over > 0  # kalman.yaml's 0.5 m/s gate skips some of this survey
+    (filt,) = [r for r in recs if r.name == "kalman.filter"]
+    assert (filt.filtered, filt.gated) == (events - over, over)
+    assert all(r.filtered == r.gated == 0 for r in recs if r is not filt)
+
+
+def test_kalman_odometry_keeps_its_bits(kalman_replay):
+    """Without a profiler nothing is recorded; with or without one the
+    odometry is the frozen pre-span filter's, bit for bit."""
+    bag, res, _ = kalman_replay
+    reset_timing()
+    times, poses, basis = pipeline.odometry(bag, "cpu", "kalman")
+    assert trace_records() == [] and basis is None
+    with mock.patch.object(pipeline, "kalman_scan", kalman_frozen.kalman_scan):
+        old_times, old, _ = pipeline.odometry(bag, "cpu", "kalman")
+    assert np.array_equal(times, old_times)
+    assert torch.equal(poses, old)
+    assert np.array_equal(res.dr_poses_at_ticks, old.numpy())
+
+
 # ---- the benchmark's readers of the records ----
 
 
@@ -321,7 +389,9 @@ def test_metric_readers_on_synthetic_records(monkeypatch):
 @pytest.mark.parametrize("name", [
     "phase_ms.ssm_icp", "phase_ms.step_other", "host_reads_per_kf.online",
     "host_wait_share.online", "refine_phase_s.chain", "host_reads.refine",
-    "gn_replay_share.online", "gn_replay_share.replay"])
+    "gn_replay_share.online", "gn_replay_share.replay", "kalman_s.prepare",
+    "kalman_s.filter", "kalman_s.integrate", "kalman_launches_per_event",
+    "kalman_pass_share"])
 def test_metric_readers_find_nothing_to_read(monkeypatch, name):
     """No traced run, no records, or a program without the tracer: None."""
     read = _reader(name)
@@ -354,5 +424,63 @@ def test_replay_share_silent_without_the_counter(monkeypatch, name):
     assert _reader(name)(ctx) is None
     for r in recs:
         r.replayed = r.eager = 0
+    monkeypatch.setattr(timing, "trace_records", lambda: list(recs))
+    assert _reader(name)(ctx) is None
+
+
+def _kalman_records():
+    """A replay's ``dr_gate`` with the filter's three spans (800 events
+    filtered, 20 gated), then a ``features`` span, inside (0, 100000)."""
+    R = [_rec("dr_gate", 1000, 50000, None)]
+    R.append(_rec("kalman.prepare", 2000, 3000, 0, reads=3))
+    R.append(_rec("kalman.filter", 3000, 43000, 0))
+    R.append(_rec("kalman.integrate", 43000, 45000, 0, reads=2))
+    R.append(_rec("features", 50000, 60000, None))
+    R[2].filtered, R[2].gated = 800, 20
+    return R
+
+
+def _kalman_ctx():
+    return types.SimpleNamespace(trace=types.SimpleNamespace(
+        spans={"trace": [(0, 100000)]}, launches={"odometry": 16000},
+        window_s=1e-4, busy_s=2.5e-5))
+
+
+def test_kalman_readers_on_synthetic_records(monkeypatch):
+    recs = _kalman_records()
+    monkeypatch.setattr(timing, "trace_records", lambda: list(recs))
+    ctx = _kalman_ctx()
+    assert _reader("kalman_s.prepare")(ctx) == pytest.approx(1e-6)
+    assert _reader("kalman_s.filter")(ctx) == pytest.approx(40e-6)
+    assert _reader("kalman_s.integrate")(ctx) == pytest.approx(2e-6)
+    assert _reader("kalman_pass_share")(ctx) == pytest.approx(0.4)
+    # launches in the odometry span over the events filtered, not gated
+    assert _reader("kalman_launches_per_event")(ctx) == pytest.approx(20.0)
+    # the Kalman cell's device idle share is the replay cell's reader's
+    assert _reader("device_idle.replay")(ctx) == pytest.approx(0.75)
+
+
+@pytest.mark.parametrize("name", [
+    "kalman_s.prepare", "kalman_s.filter", "kalman_s.integrate",
+    "kalman_launches_per_event", "kalman_pass_share"])
+def test_kalman_readers_silent_on_a_program_without_them(monkeypatch, name):
+    """A ``dr_gate`` without the filter's spans, from a tracer without the
+    event counter (the parent of the spans), or one whose filter ran no
+    event: None, not 0."""
+
+    class Bare:
+        def __init__(self, rec):
+            for k in ("name", "start_ns", "end_ns", "parent", "request",
+                      "reads", "read_ns", "replayed", "eager"):
+                setattr(self, k, getattr(rec, k))
+
+    recs = _kalman_records()
+    ctx = _kalman_ctx()
+    monkeypatch.setattr(timing, "trace_records",
+                        lambda: [Bare(r) for r in (recs[0], recs[4])])
+    assert _reader(name)(ctx) is None
+    recs[2].filtered = recs[2].gated = 0
+    for r in recs[1:4]:
+        r.name = "other"
     monkeypatch.setattr(timing, "trace_records", lambda: list(recs))
     assert _reader(name)(ctx) is None

@@ -12,17 +12,25 @@ Marked ``cuda``: they skip without a card (``python -m pytest --noconftest
   the host reads its recorded spans count, so no read site is missed. The
   first update captures the Gauss-Newton sweep and the marginal; the later
   steps replay them, and their reads still equal their syncs.
+* The Kalman front end's odometry on a short 200 Hz survey: its
+  synchronizing calls equal the host reads its spans count (the
+  configuration's and the stream's uploads, the indices, the DVL gate's
+  read), and with the spans it is the frozen pre-span filter's
+  (``kalman_frozen.py``) bit for bit.
 * The benchmark's traced stretch (``slam_bench/harness/trace.py``, a
   profiler of CUDA activity alone) turns the tracer's recording on.
 """
 
 import dataclasses
 import warnings
+from unittest import mock
 
 import pytest
 import torch
 
 import chip_smoke
+import kalman_frozen
+from sonar_slam_torch import pipeline
 from sonar_slam_torch.io.simulate import simulate_bag
 from sonar_slam_torch.pipeline import replay
 from sonar_slam_torch.slam import core
@@ -106,6 +114,36 @@ def test_host_reads_equal_cuda_syncs(card, variant):
     names = set().union(*(n for _, _, n, _ in rows))
     assert {"keyframe_step", "ssm.sampling", "ssm.icp", "graph",
             "nssm.sampling", "nssm.icp", "pcm"} <= names
+
+
+@pytest.mark.cuda
+def test_kalman_reads_equal_cuda_syncs_and_keep_the_bits(card):
+    sim = chip_smoke.small_config(seed=0)[0]
+    bag = simulate_bag(dataclasses.replace(sim, duration=30.0, imu_rate=200.0))
+    from torch.profiler import ProfilerActivity, profile
+
+    timing.reset_timing()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with timing.CodeTimer("dr_gate", silent=True):
+                    _, poses, _ = pipeline.odometry(bag, card, "kalman")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        recs = timing.trace_records()
+    finally:
+        timing.reset_timing()
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    assert syncs == step_reads(recs, 0) > 0
+    assert [r.name for r in recs[1:]] == ["kalman.prepare", "kalman.filter",
+                                         "kalman.integrate"]
+    assert recs[2].reads == 0 and recs[2].filtered > 0
+    with mock.patch.object(pipeline, "kalman_scan", kalman_frozen.kalman_scan):
+        _, old, _ = pipeline.odometry(bag, card, "kalman")
+    assert torch.equal(poses, old)
 
 
 @pytest.mark.cuda
