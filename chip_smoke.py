@@ -12,8 +12,9 @@ without printing the result line:
 
 1. device: a CUDA card is required (there is no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CFAR kernels (kernels/csrc/cfar.cu) with nvcc and
-   the LZ4 decoder (io/csrc/lz4.cpp) with the host C++ compiler;
+2. build: compiles the CFAR kernels (kernels/csrc/cfar.cu) and the Kalman
+   filter kernel (kernels/csrc/kalman.cu) with nvcc and the LZ4 decoder
+   (io/csrc/lz4.cpp) with the host C++ compiler;
 3. kernels against plain versions, on the same simulated full-geometry
    pings: two stacks of 128 pings of 512 x 256 (pings 0-127 and 128-255).
    The sum kernel at (128, 512, 256) SOCA with edge extension and the
@@ -34,7 +35,13 @@ without printing the result line:
    as a yardstick (``conv2d`` for the sums, ``kthvalue`` for OS, at
    ranks 10 and 0). Each kernel's
    bound is its bytes (one image read, one mask write) over the card's
-   memory rate, or its operations over the float32 rate if that is larger;
+   memory rate, or its operations over the float32 rate if that is larger.
+   Then the Kalman filter kernel against the event loop on the card, on
+   the same codes and measurements of phase 4's survey with a 200 Hz IMU
+   (100,320 events), twice bit for bit, timed by CUDA events; its bound is
+   its own dependent chain at latencies measured on the card by probe
+   kernels (a barrier step, an FMA, a division, a shuffle); see
+   ``check_kalman_kernel``;
 4. the SOCA slice: ``pipeline.replay`` at bench.py's full configuration
    with refinement off (480 s survey at 5 Hz, 2,400 pings of 512 x 256,
    128 keyframe slots), seed 0, with the CFAR launch counters reset just
@@ -64,9 +71,10 @@ without printing the result line:
    below, exactly; see ``run_frontend_path``;
 9. the Kalman front end: the same with ``frontend="kalman"`` (DR-basis
    aggregation off: the Kalman filter gives no basis integrals) and the
-   default Kalman configuration adapted to the 50 Hz IMU, the same checks;
-   then the Kalman scan alone, timed, and once more under ``torch.profiler``
-   to count its kernel launches;
+   default Kalman configuration adapted to the 50 Hz IMU, the same checks,
+   and one launch of the filter kernel (none on the gyro path); then the
+   Kalman scan alone, timed, and once more under ``torch.profiler`` to
+   count its kernel launches, the filter kernel once a scan;
 10. bench.py's dual-sonar lane (bench.py:792-953): ``replay(use_vertical=True)``
    at its configuration, twice, with the counters reset before each. Checks
    (a) the vertical launch's mask against the plain version bit for bit and
@@ -239,6 +247,29 @@ SMALL_ATE_BAND_M = 0.02
 ODO_POS_ATOL_M, ODO_ANG_ATOL = 1e-3, 2e-5
 FRONTEND_EXPECTED = {"dr_gyro": (73, 7, 0.0715, 0.121),
                      "kalman": (72, 7, 0.2283, 0.251)}
+# phase 3: the Kalman filter kernel against its plain version, the event
+# loop, on phase 4's survey with the Kalman cell's 200 Hz IMU (100,320
+# events). States the stream observes (through an H, or through A from an
+# observed one) agree within tests/test_torch_kalman_cuda.py's tolerances.
+# Three it does not (x and y, which only integrate the velocities, and the
+# yaw rate, which only the FOG observes) are float32 accumulations over the
+# whole survey: the loop itself, on the card as on the CPU, lands up to
+# 7.95e-3 m (on 214 m) and, in P[11, 11], 0.63 (on 960) from a float64 run
+# of it on the CPU. There the kernel's gap to the loop must stay within
+# KALMAN_UNOBSERVED_FACTOR times the loop's own gap to that float64 run
+# (two float32 roundings of the same recursion, each about as far from the
+# exact value). On an H100 80GB HBM3 (700 W) the kernel reads 0.0 from the
+# loop on the observed states and at most 2.3e-10 on x and y.
+KALMAN_IMU_RATE = 200.0
+KALMAN_RTOL = KALMAN_ATOL = 1e-5
+KALMAN_P_ATOL = 1e-7
+KALMAN_UNOBSERVED = (0, 1, 11)
+KALMAN_UNOBSERVED_FACTOR = 2.0
+# the kernel's dependent chain (kernels/csrc/kalman.cu): barrier-separated
+# steps an event, and the float32 operations in line between them (FMAs,
+# adds and multiplies; one division and one shuffle an event besides), an
+# IMU event and any other event run
+KALMAN_CHAIN = {"imu": (4, 74), "other": (2, 49)}
 # phase 10: the card's z RMSE within this of the JAX result's (the port on
 # the CPU lands 0.0 m from it, tests/test_torch_dual_lane.py), and the JAX
 # package's lane on a TPU (BENCH_r05.json), printed for scale only
@@ -525,6 +556,250 @@ def gated_pixels(imgs, gate: float) -> int:
     """Pixels over the intensity gate: the ones whose window arithmetic the
     mask needs (extend edge, so every row may detect)."""
     return int((imgs > gate).sum())
+
+
+# latency probes for the Kalman kernel's bound: one block of the kernel's
+# 160 threads passing values through shared memory a barrier a step, and
+# dependent chains of one float32 operation in one warp
+LATENCY_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+constexpr int THREADS = 160;
+constexpr int UNROLL = 16;
+
+// a step of kalman.cu's chain: read another thread's value from shared
+// memory, one FMA, write it to the other buffer, a barrier
+__global__ void step_probe(int reps, float* out) {
+  __shared__ float buf[2][THREADS];
+  const int t = threadIdx.x;
+  buf[0][t] = t * 1e-3f;
+  __syncthreads();
+  int cur = 0;
+  float v = 0.0f;
+  for (int r = 0; r < reps; ++r) {
+    v = fmaf(buf[cur][(t + 1) % THREADS], 0.999f, 1e-3f);
+    buf[cur ^ 1][t] = v;
+    __syncthreads();
+    cur ^= 1;
+  }
+  out[t] = v;
+}
+
+template <int OP>
+__global__ void chain_probe(int reps, float* out) {
+  float v = 1.0f + threadIdx.x * 1e-3f;
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (OP == 0) v = fmaf(v, 0.9999f, 1.0001f);
+      else if (OP == 1) v = 1.0001f / v;
+      else v = __shfl_xor_sync(0xffffffffu, v, 1);
+    }
+  }
+  out[threadIdx.x] = v;
+}
+
+// which: 0 the step, 1 an FMA, 2 a division, 3 a shuffle; returns
+// cudaGetLastError()
+extern "C" int latency_probe_launch(int which, int reps, float* out,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (which == 0) step_probe<<<1, THREADS, 0, s>>>(reps, out);
+  else if (which == 1) chain_probe<0><<<1, 32, 0, s>>>(reps / UNROLL, out);
+  else if (which == 2) chain_probe<1><<<1, 32, 0, s>>>(reps / UNROLL, out);
+  else chain_probe<2><<<1, 32, 0, s>>>(reps / UNROLL, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def measure_latencies(dev, reps: int = 1 << 18) -> dict:
+    """The latencies the Kalman kernel's chain is made of, in ns, by CUDA
+    events: a barrier step (``step_ns``), a dependent FMA, division and
+    shuffle. Each is the time of ``2 * reps`` less that of ``reps``, over
+    ``reps``, so the launch drops out; the least of three."""
+    import ctypes
+
+    import torch
+    from sonar_slam_torch.kernels import nvcc_build
+
+    work = tempfile.mkdtemp(prefix="latency_probe_")
+    try:
+        src = os.path.join(work, "latency_probe.cu")
+        with open(src, "w") as f:
+            f.write(LATENCY_PROBE_SRC)
+        lib = ctypes.CDLL(nvcc_build.build(src, "liblatency_probe"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    fn = lib.latency_probe_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(160, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+
+    def ms(which, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = fn(which, n, out.data_ptr(), stream.cuda_stream)
+        end.record()
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"latency probe {which}: CUDA error {err}")
+        return start.elapsed_time(end)
+
+    got = {}
+    for which, name in enumerate(("step_ns", "fma_ns", "div_ns", "shfl_ns")):
+        ms(which, reps)  # warm-up
+        got[name] = min((ms(which, 2 * reps) - ms(which, reps)) * 1e6 / reps
+                        for _ in range(3))
+    log(f"latencies on the card (ns): {json.dumps(got)}")
+    return got
+
+
+def kalman_chain_ms(codes, lat: dict) -> float:
+    """Least ms ``kalman_filter_kernel`` could take for the events of
+    ``codes`` (a host array) by its own dependent chain (``KALMAN_CHAIN``)
+    at the latencies ``lat`` (``measure_latencies``): each barrier step
+    costs ``step_ns``, which holds one FMA, and each further operation in
+    line an FMA; a division and a shuffle an event."""
+    import numpy as np
+
+    n_imu = int(np.count_nonzero(codes == 0))
+    n_other = int(np.count_nonzero((codes >= 1) & (codes <= 3)))
+    total = 0.0
+    for n, (steps, ops) in ((n_imu, KALMAN_CHAIN["imu"]),
+                            (n_other, KALMAN_CHAIN["other"])):
+        total += n * (steps * lat["step_ns"] + (ops - steps) * lat["fma_ns"]
+                      + lat["div_ns"] + lat["shfl_ns"])
+    return total * 1e-6
+
+
+def check_kalman_kernel(sim, dev) -> dict:
+    """``kalman_filter_kernel`` against its plain version, the event loop
+    of ``estimators/kalman.py`` on the card, on the same codes and prepared
+    measurements: phase 4's survey with the Kalman cell's 200 Hz IMU (its
+    navigation streams, which do not depend on the pings; one ping in 100
+    s), through ``default_kalman_config``. Holds the kernel's state after
+    every IMU event, final state and covariance to the loop's (see
+    KALMAN_RTOL and KALMAN_UNOBSERVED_FACTOR), its event count, and two
+    runs to each other bit for bit; times the kernel (the least of three)
+    and the loop once by CUDA events. The bound is the kernel's own chain
+    at the card's measured latencies (``kalman_chain_ms``); its bytes, far
+    below, are logged beside it. Returns the kernel table entry."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sonar_slam_torch.estimators import kalman as te
+    from sonar_slam_torch.io.simulate import simulate_bag
+    from sonar_slam_torch.kernels import kalman_cuda
+    from sonar_slam_torch.pipeline import default_kalman_config, kalman_events
+    from sonar_slam_torch.utils.timing import to_device
+
+    bag = simulate_bag(dataclasses.replace(sim, imu_rate=KALMAN_IMU_RATE,
+                                           sonar_rate=0.01))
+    cfg = default_kalman_config(bag.imu_time, dev)
+    _, types, z = kalman_events(bag, cfg.use_gyro)
+    _, zp, dvl_ok, codes = te._prepare(types, to_device(z, dev), cfg)
+    zp = zp.contiguous()
+    sensors = [(H.contiguous(), R.contiguous()) for H, R in te._sensors(cfg)]
+    T, ran_want = len(types), int(dvl_ok.sum())
+
+    def kernel():
+        return kalman_cuda.kalman_filter(codes, zp, cfg.A_imu.contiguous(),
+                                         cfg.Q.contiguous(), sensors)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    first = kernel()
+    again, _ = timed(kernel)
+    times = [timed(kernel)[1] for _ in range(3)]
+    ms = min(times)
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+    plain, plain_ms = timed(lambda: te._filter_loop(types, dvl_ok, zp, cfg))
+    cpu64 = cfg._replace(**{k: v.cpu().double() for k, v in
+                            cfg._asdict().items()
+                            if isinstance(v, torch.Tensor)})
+    exact = te._filter_loop(types, dvl_ok, zp.cpu().double(), cpu64)
+    x, P, hist, yaw_gyro, count = (t.cpu() for t in first)
+    lx, lP, lhist, lyaw = (t.cpu() for t in plain)
+    ran = int(count)
+    imu = types == te.EVENT_IMU
+    obs = [i for i in range(12) if i not in KALMAN_UNOBSERVED]
+    un = list(KALMAN_UNOBSERVED)
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    def close(a, b, atol):
+        return bool(((a.double() - b.double()).abs()
+                     <= atol + KALMAN_RTOL * b.double().abs()).all())
+
+    observed_ok = (close(hist[imu][:, obs], lhist[imu][:, obs], KALMAN_ATOL)
+                   and close(x[obs], lx[obs], KALMAN_ATOL)
+                   and close(P[obs][:, obs], lP[obs][:, obs], KALMAN_P_ATOL)
+                   and close(yaw_gyro, lyaw, KALMAN_ATOL))
+    err = max(gap(hist[imu][:, obs], lhist[imu][:, obs]),
+              gap(x[obs], lx[obs]), gap(yaw_gyro, lyaw))
+    p_err = gap(P[obs][:, obs], lP[obs][:, obs])
+    # the unobserved states: each state's series and final value, and each
+    # covariance row that touches them
+    ehist, ex, eP = exact[2], exact[0], exact[1]
+    ratios = {}
+    for i in un:
+        pairs = {f"hist[{i}]": (hist[imu][:, i], lhist[imu][:, i],
+                                ehist[imu][:, i]),
+                 f"x[{i}]": (x[i], lx[i], ex[i]),
+                 f"P[{i}, :]": (P[i], lP[i], eP[i])}
+        for name, (k, l, e) in pairs.items():
+            ratios[name] = {"kernel_loop": gap(k, l), "loop_exact": gap(l, e),
+                            "kernel_exact": gap(k, e)}
+    unobserved_ok = all(
+        r["kernel_loop"] <= KALMAN_UNOBSERVED_FACTOR * r["loop_exact"]
+        + KALMAN_ATOL for r in ratios.values())
+
+    codes_h = codes.cpu().numpy()
+    n_imu = int(imu.sum())
+    lat = measure_latencies(dev)
+    bound_ms = kalman_chain_ms(codes_h, lat)
+    # bytes: each event's code and measurement read, the outputs zeroed
+    # (the state history and the FOG yaw) and the state written after each
+    # IMU event
+    nbytes = T * (1 + 12) + T * 48 + 4 * (T + 1) + n_imu * 48
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    log(f"kalman filter kernel, {T} events ({n_imu} IMU, {T - ran_want} "
+        f"gated): ran {ran}; kernel ms {times} (bit for bit in two runs: "
+        f"{bitwise}), the loop on the card {plain_ms} ms; observed states "
+        f"max abs gap {err}, their covariance {p_err} (within tolerance: "
+        f"{observed_ok}); unobserved states {json.dumps(ratios)} (within "
+        f"{KALMAN_UNOBSERVED_FACTOR}x the loop's own gap: {unobserved_ok}); "
+        f"bound {bound_ms} ms (latency; bytes {bytes_ms} ms), share "
+        f"{bound_ms / ms}; {ms * 1e3 / T} us an event")
+    if ran != ran_want or not bitwise:
+        raise RuntimeError(f"Kalman kernel ran {ran} of {ran_want} events, "
+                           f"bit for bit in two runs: {bitwise}")
+    if not (observed_ok and unobserved_ok):
+        raise RuntimeError("Kalman kernel disagrees with its plain version")
+    return {"name": "kalman_filter_kernel (one block, the whole event stream)",
+            "route": "cuda",
+            "source": "sonar_slam_torch/kernels/csrc/kalman.cu",
+            "replaces": "none (sonar_slam_tpu/estimators/kalman.py::"
+                        "kalman_scan runs the stream as one lax.scan)",
+            "events": T, "imu_events": n_imu, "launches": 0,
+            "max_abs_err": err, "covariance_max_abs_err": p_err,
+            "unobserved": ratios, "ms": ms, "plain_ms": plain_ms,
+            "us_per_event": ms * 1e3 / T, "bound_ms": bound_ms,
+            "bound_by": "latency", "roofline_share": bound_ms / ms,
+            "bytes_bound_ms": bytes_ms, "latencies_ns": lat}
 
 
 def full_config(seed: int = 0):
@@ -1165,12 +1440,14 @@ def ping_odometry(res, bag, frontend: str):
 def run_frontend_path(bag, dev, frontend: str) -> int:
     """Phase 4's survey through ``frontend`` ("dr_gyro" or "kalman"), held
     to the JAX package's odometry and keyframes and to the port's own first
-    card result. Returns the sum kernel's launch count of the run."""
+    card result. Returns the sum kernel's and the Kalman filter kernel's
+    launch counts of the run (the Kalman path launches the filter once, a
+    dead-reckoning path never)."""
     import dataclasses
 
     import numpy as np
     import torch
-    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.kernels import cfar_cuda, kalman_cuda
     from sonar_slam_torch.pipeline import ate_heading_deg, ate_rmse, replay
 
     sim, dims, params_on, fcfg = full_config(seed=0)
@@ -1183,11 +1460,13 @@ def run_frontend_path(bag, dev, frontend: str) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     cfar_cuda.cfar_detect.launches = 0
     cfar_cuda.cfar_detect.kernel_launches["sum"] = 0
+    kalman_cuda.kalman_filter.launches = 0
     t0 = time.perf_counter()
     res = replay(bag, fcfg, params, dims, dev, frontend=frontend)
     wall = time.perf_counter() - t0
     launches = cfar_cuda.cfar_detect.launches
     sum_launches = cfar_cuda.cfar_detect.kernel_launches["sum"]
+    filter_launches = kalman_cuda.kalman_filter.launches
     peak = torch.cuda.max_memory_allocated(dev)
     truth = bag.true_pose_at_ping[res.keyframe_ping_idx]
     ate = ate_rmse(res.trajectory, truth)
@@ -1205,28 +1484,35 @@ def run_frontend_path(bag, dev, frontend: str) -> int:
         f"{dr_ate:.4f} m), odometry at the pings against JAX: max abs diff "
         f"{pos_err} m, {ang_err} rad; wall {wall:.2f} s, stages s "
         f"{json.dumps(res.stage_s)}, peak memory {peak / 2**20:.1f} MiB, CFAR "
-        f"launches {launches}, of them the sum kernel {sum_launches}")
+        f"launches {launches}, of them the sum kernel {sum_launches}; Kalman "
+        f"filter kernel launches {filter_launches}")
     if not np.isfinite(res.trajectory).all():
         raise RuntimeError(f"{frontend} path: trajectory not finite")
     if sum_launches < 1 or sum_launches != launches:
         raise RuntimeError(f"{frontend} path made {launches} CFAR launches, "
                            f"{sum_launches} of the sum kernel")
+    if filter_launches != (frontend == "kalman"):
+        raise RuntimeError(f"{frontend} path launched the Kalman filter "
+                           f"kernel {filter_launches} times")
     if not kf_ok or pos_err > ODO_POS_ATOL_M or ang_err > ODO_ANG_ATOL:
         raise RuntimeError(f"{frontend} path: odometry or keyframes differ "
                            f"from the JAX package's")
     got = (res.num_keyframes, nl, round(ate, 4), round(ate_deg, 3))
     _check_pin(f"{frontend} path (keyframes, loops, ATE m, ATE deg)", got,
                FRONTEND_EXPECTED[frontend])
-    return sum_launches
+    return sum_launches, filter_launches
 
 
 def time_kalman_scan(bag, dev) -> dict:
     """The Kalman front end alone on the card: its wall time (twice) and,
-    under ``torch.profiler``, its kernel launches."""
+    under ``torch.profiler``, its kernel launches; the filter kernel must
+    launch once a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from sonar_slam_torch.kernels import kalman_cuda
     from sonar_slam_torch.pipeline import odometry
 
+    kalman_cuda.kalman_filter.launches = 0
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1241,11 +1527,17 @@ def time_kalman_scan(bag, dev) -> dict:
     for e in prof.key_averages():
         if "LaunchKernel" in e.key or e.key.startswith("cuLaunch"):
             names[e.key] = e.count
+    filter_launches = kalman_cuda.kalman_filter.launches
     n_events = len(bag.imu_time) + len(bag.dvl_time) + len(bag.depth_time)
     out = {"wall_s": walls, "launch_calls": names,
-           "launches": sum(names.values()), "events": n_events}
+           "launches": sum(names.values()), "events": n_events,
+           "filter_launches": filter_launches}
     log(f"kalman scan on the card ({n_events} events): wall s {walls}, kernel "
-        f"launch calls under torch.profiler {json.dumps(names)}")
+        f"launch calls under torch.profiler {json.dumps(names)}, Kalman "
+        f"filter kernel launches in the 3 calls {filter_launches}")
+    if filter_launches != 3:
+        raise RuntimeError(f"3 Kalman scans launched the filter kernel "
+                           f"{filter_launches} times")
     return out
 
 
@@ -2844,13 +3136,17 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # 2) build: the CFAR kernels with nvcc, the LZ4 decoder with the host
-    # C++ compiler
+    # 2) build: the CFAR and Kalman kernels with nvcc, the LZ4 decoder with
+    # the host C++ compiler
     from sonar_slam_torch.io import lz4_lib
+    from sonar_slam_torch.kernels import kalman_cuda
 
     t_start = time.perf_counter()
     lib = cfar_cuda.build()
     log(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t_start:.2f} s")
+    t0 = time.perf_counter()
+    lib = kalman_cuda.build()
+    log(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     lib = lz4_lib.build()
     log(f"built {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.2f} s")
@@ -2870,6 +3166,7 @@ def main() -> int:
     entry_os = check_os_kernel(stacks)
     del stacks
     torch.cuda.empty_cache()
+    entry_kalman = check_kalman_kernel(sim, dev)
 
     # 10) bench.py's dual-sonar lane, before any other process shares the
     # card: it times its vertical call
@@ -2881,7 +3178,8 @@ def main() -> int:
     workers = [PhaseWorker(phase) for phase in ("13", "14", "16", "17")]
     try:
         kalman, lz4_rates, node_api = run_main_phases(
-            bag, dev, dims, params_on, fcfg, entry, entry_os, by_path)
+            bag, dev, dims, params_on, fcfg, entry, entry_os, entry_kalman,
+            by_path)
         del bag
         done = [w.result() for w in workers]
     finally:
@@ -2901,7 +3199,7 @@ def main() -> int:
     log(json.dumps({"kalman_scan": kalman}))
     log(json.dumps({"lz4_decoder": lz4_rates}))
     log(json.dumps({"node_api": node_api}))
-    log(json.dumps({"kernels": [entry, entry_os]}))
+    log(json.dumps({"kernels": [entry, entry_os, entry_kalman]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2909,14 +3207,15 @@ def main() -> int:
 
 
 def run_main_phases(bag, dev, dims, params_on, fcfg, entry, entry_os,
-                    by_path):
+                    entry_kalman, by_path):
     """Phases 4-9, 11-12 and 15, in the main process beside phases 13 and
     14's: records the main path's launches into the kernels' entries and
-    each path's into ``by_path``. Returns (the Kalman scan's numbers, the
-    LZ4 decoder's rates, phase 15's numbers)."""
+    each path's into ``by_path`` (the CFAR kernels') and the Kalman entry's
+    ``launches_by_path``. Returns (the Kalman scan's numbers, the LZ4
+    decoder's rates, phase 15's numbers)."""
     import numpy as np
     import torch
-    from sonar_slam_torch.kernels import cfar_cuda
+    from sonar_slam_torch.kernels import cfar_cuda, kalman_cuda
     from sonar_slam_torch.pipeline import ate_heading_deg, ate_rmse, replay
 
     # 4) the SOCA slice: full-config replay with refinement off
@@ -2970,9 +3269,14 @@ def run_main_phases(bag, dev, dims, params_on, fcfg, entry, entry_os,
 
     # 8-9) the FOG-gyro and Kalman front ends on phase 4's survey
     by_path["soca"] = entry["launches"]
+    filter_by_path = {}
     for frontend in ("dr_gyro", "kalman"):
-        by_path[frontend] = run_frontend_path(bag, dev, frontend)
+        by_path[frontend], filter_by_path[frontend] = run_frontend_path(
+            bag, dev, frontend)
     kalman = time_kalman_scan(bag, dev)
+    filter_by_path["time_kalman_scan"] = kalman["filter_launches"]
+    entry_kalman["launches"] = filter_by_path["kalman"]
+    entry_kalman["launches_by_path"] = filter_by_path
     torch.cuda.empty_cache()
 
     # 11-12) the command-line path: a bag through convert_bag and the

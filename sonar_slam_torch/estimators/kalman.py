@@ -10,28 +10,36 @@ pitch, yaw - yaw0), 1 = DVL (z = vx, vy, vz; skipped above
 mount-rotated delta yaw, 0, 0).
 
 The JAX package runs the stream as one ``lax.scan``. Here the event types
-live on the host, so the scan is a Python loop over events that branches on
-the host and never reads the device:
+live on the host, and everything that does not depend on the filter state
+is computed for the whole stream before the filter runs: the IMU
+measurement with its offset and its yaw zeroed at the first IMU event, and
+the DVL over-speed gate (a gated event changes nothing and is skipped). The
+filter then carries only ``x``, ``P`` and the FOG yaw, and records ``x``
+after each IMU event and the FOG yaw after each gyro event. Which filter
+runs follows the stream's device:
 
-* everything that does not depend on the filter state is computed before
-  the loop for the whole stream: the IMU measurement with its offset and
-  its yaw zeroed at the first IMU event, and the DVL over-speed gate (a
-  gated event changes nothing and is skipped);
-* the loop carries only ``x``, ``P`` and the FOG yaw (about sixteen small
-  launches an event: ``A P Aᵀ + Q`` and ``H P Hᵀ + R`` through ``addmm``,
-  the 3x3 inverse in closed form) and records ``x`` after each IMU event
-  and the FOG yaw after each gyro event;
-* the pose integral, which reads the filter but never feeds it, runs after
-  the loop as cumulative sums over the recorded states.
+* on a CUDA device, one launch of ``kalman_filter_kernel``
+  (``kernels/kalman_cuda.py``, ``kernels/csrc/kalman.cu``) runs the whole
+  stream, each event's type (or a skip code for a gated DVL event) uploaded
+  beside it, and the host reads back only the kernel's count of the events
+  it ran;
+* on the CPU, the plain version: a Python loop over the events that
+  branches on the host and never reads the device (``A P Aᵀ + Q`` and
+  ``H P Hᵀ + R`` through ``addmm``, the 3x3 inverse in closed form).
+
+The pose integral, which reads the filter but never feeds it, runs after
+the filter as cumulative sums over the recorded states.
 
 The three phases are the tracer's spans ``kalman.prepare``,
 ``kalman.filter`` and ``kalman.integrate`` (``utils/timing.py``); the
-filter's span counts the events it ran and the DVL events its gate
-skipped (``count_filter_events``), and the host's waits on the device go
-through ``host_read`` and ``to_device``.
+filter's span counts the events it ran, the DVL events its gate skipped
+and the events the kernel ran (``count_filter_events``), and the host's
+waits on the device go through ``host_read`` and ``to_device``.
 
 The sums run in other orders than the sequential float32 scan, so the poses
-agree with it to float32 rounding (``tests/test_torch_frontends.py``).
+agree with it to float32 rounding (``tests/test_torch_frontends.py``), and
+the kernel agrees with the loop to float32 rounding
+(``tests/test_torch_kalman_cuda.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import kalman_cuda
 from ..utils.timing import CodeTimer, count_filter_events, host_read, to_device
 
 EVENT_IMU, EVENT_DVL, EVENT_DEPTH, EVENT_GYRO = 0, 1, 2, 3
@@ -125,6 +134,88 @@ def _inv3(S: torch.Tensor) -> torch.Tensor:
     return cof.T / torch.dot(S[0], cof[0])
 
 
+def _sensors(cfg: KalmanConfig) -> list:
+    """The (H, R) pair of each event type, in the order of the type codes."""
+    return [(cfg.H_imu, cfg.R_imu), (cfg.H_dvl, cfg.R_dvl),
+            (cfg.H_depth, cfg.R_depth), (cfg.H_gyro, cfg.R_gyro)]
+
+
+def _filter_loop(types: np.ndarray, dvl_ok: np.ndarray, z: torch.Tensor,
+                 cfg: KalmanConfig):
+    """The plain filter, an event at a time: ``(x, P, hist (T, 12), yaw_gyro
+    (T + 1,))`` as :func:`kalman_cuda.kalman_filter` returns them, in
+    ``z``'s dtype (``cfg``'s matrices in it too: float32 on the main path,
+    float64 for an exact yardstick)."""
+    dev, f32 = z.device, z.dtype
+    T = len(types)
+    sensors = {k: (H, R, H.T.contiguous())
+               for k, (H, R) in enumerate(_sensors(cfg))}
+    A, AT, Q = cfg.A_imu, cfg.A_imu.T.contiguous(), cfg.Q
+
+    x = torch.zeros(12, dtype=f32, device=dev)
+    P = torch.zeros((12, 12), dtype=f32, device=dev)
+    hist = torch.zeros((T, 12), dtype=f32, device=dev)  # x after IMU events
+    yaw_gyro = torch.zeros((T + 1,), dtype=f32, device=dev)  # after gyro events
+    yg = yaw_gyro[T]
+    zrows = z.unbind(0)
+    for e in range(T):
+        kind = int(types[e])
+        if kind == EVENT_DVL and not dvl_ok[e]:
+            continue
+        if kind == EVENT_IMU:
+            x = torch.mv(A, x)
+            P = torch.addmm(Q, torch.mm(A, P), AT)
+        H, R, HT = sensors[kind]
+        S = torch.addmm(R, torch.mm(H, P), HT)
+        K = torch.mm(torch.mm(P, HT), _inv3(S))
+        y = torch.addmv(zrows[e], H, x, alpha=-1.0)
+        if kind == EVENT_IMU:
+            x = torch.addmv(x, K, y, out=hist[e])
+        else:
+            x = torch.addmv(x, K, y)
+        P = torch.addmm(P, torch.mm(K, H), P, alpha=-1.0)
+        if kind == EVENT_GYRO:
+            # added in stream order, as the sequential scan adds
+            yg = torch.add(yg, x[11], out=yaw_gyro[e])
+    return x, P, hist, yaw_gyro
+
+
+def _prepare(types: np.ndarray, z: torch.Tensor, cfg: KalmanConfig):
+    """What the filter's input needs of the whole stream before the filter
+    runs: ``(imu_t, z, dvl_ok, codes)``, the IMU events' indices on the
+    device, the measurements with the IMU's offset roll and its yaw zeroed
+    at the first IMU event, the DVL gate on the host ((T,) bool, true but
+    for a DVL event over ``dvl_max_velocity``) and, on a CUDA device, the
+    kernel's event codes (the type, or a skip for a gated event; None on
+    the CPU)."""
+    dev = z.device
+    T = len(types)
+    imu_ev = np.nonzero(types == EVENT_IMU)[0]
+    imu_t = to_device(imu_ev, dev)
+    # the IMU measurement: offset roll, yaw zeroed at the first IMU event
+    z = z.clone()
+    if len(imu_ev):
+        zi = z[imu_t]
+        yaw0 = zi[0, 2]
+        z[imu_t] = torch.stack([zi[:, 0] + cfg.imu_offset, zi[:, 1],
+                                zi[:, 2] - yaw0], dim=-1)
+    # the DVL over-speed gate reads z alone: decide it here, on the host
+    dvl_ok = np.ones(T, bool)
+    dvl_ev = np.nonzero(types == EVENT_DVL)[0]
+    if len(dvl_ev):
+        over = (z[to_device(dvl_ev, dev)].abs()
+                > cfg.dvl_max_velocity).any(dim=-1)
+        dvl_ok[dvl_ev] = ~host_read(over.cpu).numpy()
+    codes = None
+    if dev.type == "cuda":
+        if not np.isin(types, (EVENT_IMU, EVENT_DVL, EVENT_DEPTH,
+                               EVENT_GYRO)).all():
+            raise ValueError("unknown Kalman event type in the stream")
+        codes = to_device(np.where(dvl_ok, types, kalman_cuda.EVENT_SKIP)
+                          .astype(np.int8), dev)
+    return imu_t, z, dvl_ok, codes
+
+
 def kalman_scan(events_type: np.ndarray, events_z: torch.Tensor,
                 config: KalmanConfig):
     """Run a merged sensor event stream through the filter.
@@ -143,56 +234,24 @@ def kalman_scan(events_type: np.ndarray, events_z: torch.Tensor,
     gyro_ev = np.nonzero(types == EVENT_GYRO)[0]
 
     with CodeTimer("kalman.prepare", silent=True):
-        imu_t = to_device(imu_ev, dev)
-        # the IMU measurement: offset roll, yaw zeroed at the first IMU event
-        z = z.clone()
-        if len(imu_ev):
-            zi = z[imu_t]
-            yaw0 = zi[0, 2]
-            z[imu_t] = torch.stack([zi[:, 0] + cfg.imu_offset, zi[:, 1],
-                                    zi[:, 2] - yaw0], dim=-1)
-        # the DVL over-speed gate reads z alone: decide it here, on the host
-        dvl_ok = np.ones(T, bool)
-        dvl_ev = np.nonzero(types == EVENT_DVL)[0]
-        if len(dvl_ev):
-            over = (z[to_device(dvl_ev, dev)].abs()
-                    > cfg.dvl_max_velocity).any(dim=-1)
-            dvl_ok[dvl_ev] = ~host_read(over.cpu).numpy()
+        imu_t, z, dvl_ok, codes = _prepare(types, z, cfg)
+    gated = int(np.count_nonzero(~dvl_ok))
 
-    sensors = {EVENT_IMU: (cfg.H_imu, cfg.R_imu),
-               EVENT_DVL: (cfg.H_dvl, cfg.R_dvl),
-               EVENT_DEPTH: (cfg.H_depth, cfg.R_depth),
-               EVENT_GYRO: (cfg.H_gyro, cfg.R_gyro)}
-    sensors = {k: (H, R, H.T.contiguous()) for k, (H, R) in sensors.items()}
-    A, AT, Q = cfg.A_imu, cfg.A_imu.T.contiguous(), cfg.Q
-
-    x, P = kalman_init(dev)[:2]
-    hist = torch.zeros((T, 12), dtype=f32, device=dev)  # x after IMU events
-    yaw_gyro = torch.zeros((T + 1,), dtype=f32, device=dev)  # after gyro events
-    yg = yaw_gyro[T]
-    zrows = z.unbind(0)
     with CodeTimer("kalman.filter", silent=True):
-        for e in range(T):
-            kind = int(types[e])
-            if kind == EVENT_DVL and not dvl_ok[e]:
-                continue
-            if kind == EVENT_IMU:
-                x = torch.mv(A, x)
-                P = torch.addmm(Q, torch.mm(A, P), AT)
-            H, R, HT = sensors[kind]
-            S = torch.addmm(R, torch.mm(H, P), HT)
-            K = torch.mm(torch.mm(P, HT), _inv3(S))
-            y = torch.addmv(zrows[e], H, x, alpha=-1.0)
-            if kind == EVENT_IMU:
-                x = torch.addmv(x, K, y, out=hist[e])
-            else:
-                x = torch.addmv(x, K, y)
-            P = torch.addmm(P, torch.mm(K, H), P, alpha=-1.0)
-            if kind == EVENT_GYRO:
-                # added in stream order, as the sequential scan adds
-                yg = torch.add(yg, x[11], out=yaw_gyro[e])
-        gated = int(np.count_nonzero(~dvl_ok))
-        count_filter_events(T - gated, gated)
+        if dev.type == "cuda":
+            x, P, hist, yaw_gyro, count = kalman_cuda.kalman_filter(
+                codes, z.contiguous(), cfg.A_imu.contiguous(),
+                cfg.Q.contiguous(),
+                [(H.contiguous(), R.contiguous()) for H, R in _sensors(cfg)])
+            # the span ends when the kernel has run all of the stream
+            ran = host_read(int, count)
+            if ran != T - gated:
+                raise RuntimeError(f"the Kalman filter kernel ran {ran} "
+                                   f"events of {T - gated}")
+        else:
+            x, P, hist, yaw_gyro = _filter_loop(types, dvl_ok, z, cfg)
+            ran = 0
+        count_filter_events(T - gated, gated, ran)
 
     # the pose after each IMU event: velocity integrated over dt_imu, turned
     # by the previous pose's yaw (or by the FOG yaw integrated so far)

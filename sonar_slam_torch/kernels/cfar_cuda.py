@@ -31,60 +31,25 @@ build or a launch fails, ``cfar_detect`` raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from . import nvcc_build
+
 _MODES = {"CA": 0, "SOCA": 1, "GOCA": 2}
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "cfar.cu")
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
-)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 _lib = None
 # widest OS window the kernels take (OS_MAX_CELLS in csrc/cfar.cu)
 OS_MAX_CELLS = 128
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is not None:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the CFAR kernel cannot be built")
-    return path
-
-
 def build() -> str:
     """Compile ``csrc/cfar.cu`` into a shared library (once per source
     content) and return its path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(_BUILD_DIR, f"libcfar_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return nvcc_build.build(_SRC, "libcfar")
 
 
 def _load():

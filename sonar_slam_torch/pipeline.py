@@ -95,16 +95,17 @@ class ReplayResult(NamedTuple):
     elevation_spec: object | None = None  # ElevationSpec
 
 
-def _kalman_odometry(bag: SyntheticBag, kalman_config: KalmanConfig, device):
-    """The merged sensor event stream through the Kalman filter: (times
-    (T,), poses3 (T, 6)) at the IMU events, where the filter publishes."""
+def kalman_events(bag: SyntheticBag, use_gyro: bool):
+    """The bag's merged, time-sorted sensor event stream on the host:
+    (times (T,), types (T,) int32, z (T, 3) float32), the FOG's events
+    among them when ``use_gyro`` and the bag has a gyro."""
     times = [bag.imu_time, bag.dvl_time, bag.depth_time]
     types = [np.full(len(bag.imu_time), EVENT_IMU, np.int32),
              np.full(len(bag.dvl_time), EVENT_DVL, np.int32),
              np.full(len(bag.depth_time), EVENT_DEPTH, np.int32)]
     zeros = np.zeros_like(bag.depth)
     zs = [bag.imu_rpy, bag.dvl_vel, np.stack([bag.depth, zeros, zeros], -1)]
-    if kalman_config.use_gyro and bag.gyro_time is not None:
+    if use_gyro and bag.gyro_time is not None:
         # FOG delta-yaw corrections; the simulator's gyro frame is already
         # sonar-aligned (identity offset)
         times.append(bag.gyro_time)
@@ -116,7 +117,13 @@ def _kalman_odometry(bag: SyntheticBag, kalman_config: KalmanConfig, device):
     types = np.concatenate(types)
     z = np.concatenate(zs).astype(np.float32)
     order = np.argsort(times, kind="stable")
-    times, types, z = times[order], types[order], z[order]
+    return times[order], types[order], z[order]
+
+
+def _kalman_odometry(bag: SyntheticBag, kalman_config: KalmanConfig, device):
+    """The merged sensor event stream through the Kalman filter: (times
+    (T,), poses3 (T, 6)) at the IMU events, where the filter publishes."""
+    times, types, z = kalman_events(bag, kalman_config.use_gyro)
     _, _, poses = kalman_scan(types, to_device(z, device), kalman_config)
     imu = np.nonzero(types == EVENT_IMU)[0]
     return times[imu], poses[to_device(imu, device)]

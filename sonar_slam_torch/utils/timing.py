@@ -21,7 +21,8 @@ to the innermost open span (:func:`to_device` for a copy to the device).
 the factor graph on the innermost open span, as ``replayed`` (a captured
 CUDA graph) or ``eager``; :func:`count_filter_events` counts the Kalman
 filter's events on it, as ``filtered`` (run through the filter) or
-``gated`` (DVL events the over-speed gate skipped). With no profiler active
+``gated`` (DVL events the over-speed gate skipped), and as ``kernel`` the
+events of ``filtered`` that its CUDA kernel ran. With no profiler active
 nothing is recorded and
 no device memory is touched: a span costs one profiler check and two clock
 reads, a host read one list check. :func:`trace_records` returns the
@@ -76,10 +77,12 @@ class Record:
     the nanoseconds the host blocked in them, ``replayed`` and ``eager`` the
     factor graph's sweeps and marginals run directly in it as captured CUDA
     graphs and op by op, ``filtered`` and ``gated`` the Kalman filter's
-    events run in it and the DVL events its gate skipped."""
+    events run in it and the DVL events its gate skipped, ``kernel`` those
+    of ``filtered`` that its CUDA kernel ran."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "request", "reads",
-                 "read_ns", "replayed", "eager", "filtered", "gated", "index")
+                 "read_ns", "replayed", "eager", "filtered", "gated", "kernel",
+                 "index")
 
     def __init__(self, name, parent, request, index):
         self.name = name
@@ -92,6 +95,7 @@ class Record:
         self.eager = 0
         self.filtered = 0
         self.gated = 0
+        self.kernel = 0
         self.index = index
 
     def __repr__(self):
@@ -99,7 +103,8 @@ class Record:
                 f"parent={self.parent}, request={self.request}, "
                 f"reads={self.reads}, read_ns={self.read_ns}, "
                 f"replayed={self.replayed}, eager={self.eager}, "
-                f"filtered={self.filtered}, gated={self.gated})")
+                f"filtered={self.filtered}, gated={self.gated}, "
+                f"kernel={self.kernel})")
 
 
 def _open(name: str, request) -> Record:
@@ -182,13 +187,15 @@ def count_graph_run(replayed: bool) -> None:
             _OPEN[-1].eager += 1
 
 
-def count_filter_events(filtered: int, gated: int) -> None:
+def count_filter_events(filtered: int, gated: int, kernel: int = 0) -> None:
     """While recording, add to the innermost open span the Kalman filter's
     events: ``filtered`` run through the filter, ``gated`` DVL events its
-    over-speed gate skipped."""
+    over-speed gate skipped, ``kernel`` the events of ``filtered`` that its
+    CUDA kernel ran."""
     if _OPEN:
         _OPEN[-1].filtered += filtered
         _OPEN[-1].gated += gated
+        _OPEN[-1].kernel += kernel
 
 
 def to_device(x, device, dtype=None):

@@ -1,7 +1,8 @@
 """The port's Kalman scan as it stood before its spans and counters, frozen:
 the tests hold the spanned ``estimators.kalman.kalman_scan`` to it bit for
-bit (on the CPU in ``test_torch_trace.py``, on a card in
-``test_torch_trace_cuda.py``)."""
+bit on the CPU (``test_torch_trace.py``), and the CUDA kernel that runs the
+filter on a card to it within float32 rounding
+(``test_torch_trace_cuda.py``)."""
 
 from __future__ import annotations
 

@@ -20,6 +20,14 @@ compares it) and the heading at each of them. Nudged filters:
   within the positions' rounding, as on the card, and turns the heading
   past ``TOL_YAW``.
 
+On a card (``test_kernel_against_the_sequential_reference``, marked
+``cuda``; ``PYTHONPATH=. python -m pytest --noconftest -m cuda
+tests/test_torch_kalman_reference.py`` there, as this file imports no JAX)
+the program's filter is the CUDA kernel (``kernels/csrc/kalman.cu``), held
+to the same reference within the same ``TOL_M`` and ``TOL_YAW``: a filter
+computed in TF32 or with a step left out falls outside ``TOL_YAW``, which
+the benchmark's position limit would not see.
+
 Tolerances: ``TOL_M`` = 5e-4 m. The port integrates the pose as a row scan
 after the loop and the reference adds it one message at a time, so the
 float32 sums of a path of about 30 m round in other orders (measured 2.9e-4
@@ -101,6 +109,13 @@ def nudged(nudge: str, cfg):
 
 
 @pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda:0")
+
+
+@pytest.fixture(scope="module")
 def references():
     """{IMU rate: (bag, reference times, reference poses3)}."""
     out = {}
@@ -130,11 +145,7 @@ def test_odometry_against_the_sequential_reference(references, rate, nudge):
         with nudged(nudge, cfg) as cfg:
             times, poses, _ = pipeline.odometry(bag, "cpu", "kalman",
                                                 kalman_config=cfg)
-    poses = poses.numpy()
-    assert np.array_equal(times, ref_times) and poses.shape == ref.shape
-    gap = float(np.max(np.abs(poses[:, :3].astype(np.float64)
-                              - ref[:, :3])))
-    heading = heading_gap(poses[:, 5], ref[:, 5])
+    gap, heading = readings(times, poses.numpy(), ref_times, ref)
     if nudge == "dt_scaled":
         assert gap > 10 * TOL_M, gap
         return
@@ -144,4 +155,26 @@ def test_odometry_against_the_sequential_reference(references, rate, nudge):
         return
     assert heading <= TOL_YAW, heading
     # roll and pitch are the filter's, equal within its rounding
+    assert np.allclose(poses[:, 3:5], ref[:, 3:5], rtol=0, atol=TOL_YAW)
+
+
+def readings(times, poses, ref_times, ref):
+    """(position gap m, heading gap rad) of the program's odometry at the
+    reference's IMU times."""
+    assert np.array_equal(times, ref_times) and poses.shape == ref.shape
+    gap = float(np.max(np.abs(poses[:, :3].astype(np.float64) - ref[:, :3])))
+    return gap, heading_gap(poses[:, 5], ref[:, 5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [200.0, 50.0])
+def test_kernel_against_the_sequential_reference(card, references, rate):
+    bag, ref_times, ref = references[rate]
+    cfg = pipeline.default_kalman_config(bag.imu_time, card)
+    times, poses, _ = pipeline.odometry(bag, card, "kalman",
+                                        kalman_config=cfg)
+    poses = poses.cpu().numpy()
+    gap, heading = readings(times, poses, ref_times, ref)
+    assert gap <= TOL_M, gap
+    assert heading <= TOL_YAW, heading
     assert np.allclose(poses[:, 3:5], ref[:, 3:5], rtol=0, atol=TOL_YAW)

@@ -10,9 +10,9 @@
 * Host reads land in the innermost open span; spans share the profiler's
   clock; ``pipeline.replay``'s ``stage_s`` keeps its keys.
 * The Kalman front end's three spans, children of ``dr_gate``, and its
-  counter of the events filtered and gated; with and without a profiler its
-  odometry is the frozen pre-span filter's (``kalman_frozen.py``) bit for
-  bit.
+  counter of the events filtered and gated (none of them by the CUDA
+  kernel on the CPU); with and without a profiler its odometry is the
+  frozen pre-span filter's (``kalman_frozen.py``) bit for bit.
 * The benchmark's readers of these records on a synthetic record list.
 """
 
@@ -290,6 +290,8 @@ def test_kalman_counter_counts_events_filtered_and_gated(kalman_replay):
     (filt,) = [r for r in recs if r.name == "kalman.filter"]
     assert (filt.filtered, filt.gated) == (events - over, over)
     assert all(r.filtered == r.gated == 0 for r in recs if r is not filt)
+    # the CPU runs the plain loop: the kernel ran none of them
+    assert all(r.kernel == 0 for r in recs)
 
 
 def test_kalman_odometry_keeps_its_bits(kalman_replay):
@@ -391,7 +393,7 @@ def test_metric_readers_on_synthetic_records(monkeypatch):
     "host_wait_share.online", "refine_phase_s.chain", "host_reads.refine",
     "gn_replay_share.online", "gn_replay_share.replay", "kalman_s.prepare",
     "kalman_s.filter", "kalman_s.integrate", "kalman_launches_per_event",
-    "kalman_pass_share"])
+    "kalman_pass_share", "kalman_kernel_share"])
 def test_metric_readers_find_nothing_to_read(monkeypatch, name):
     """No traced run, no records, or a program without the tracer: None."""
     read = _reader(name)
@@ -436,7 +438,7 @@ def _kalman_records():
     R.append(_rec("kalman.filter", 3000, 43000, 0))
     R.append(_rec("kalman.integrate", 43000, 45000, 0, reads=2))
     R.append(_rec("features", 50000, 60000, None))
-    R[2].filtered, R[2].gated = 800, 20
+    R[2].filtered, R[2].gated, R[2].kernel = 800, 20, 800
     return R
 
 
@@ -456,13 +458,17 @@ def test_kalman_readers_on_synthetic_records(monkeypatch):
     assert _reader("kalman_pass_share")(ctx) == pytest.approx(0.4)
     # launches in the odometry span over the events filtered, not gated
     assert _reader("kalman_launches_per_event")(ctx) == pytest.approx(20.0)
+    # every event filtered ran in the kernel; then none of them
+    assert _reader("kalman_kernel_share")(ctx) == 1.0
+    recs[2].kernel = 0
+    assert _reader("kalman_kernel_share")(ctx) == 0.0
     # the Kalman cell's device idle share is the replay cell's reader's
     assert _reader("device_idle.replay")(ctx) == pytest.approx(0.75)
 
 
 @pytest.mark.parametrize("name", [
     "kalman_s.prepare", "kalman_s.filter", "kalman_s.integrate",
-    "kalman_launches_per_event", "kalman_pass_share"])
+    "kalman_launches_per_event", "kalman_pass_share", "kalman_kernel_share"])
 def test_kalman_readers_silent_on_a_program_without_them(monkeypatch, name):
     """A ``dr_gate`` without the filter's spans, from a tracer without the
     event counter (the parent of the spans), or one whose filter ran no
@@ -484,3 +490,22 @@ def test_kalman_readers_silent_on_a_program_without_them(monkeypatch, name):
         r.name = "other"
     monkeypatch.setattr(timing, "trace_records", lambda: list(recs))
     assert _reader(name)(ctx) is None
+
+
+def test_kalman_kernel_share_silent_without_the_kernel_count(monkeypatch):
+    """Records of a tracer that counts the events filtered and gated but
+    not those the kernel ran (the program before the kernel): None."""
+
+    class Counted:
+        def __init__(self, rec):
+            for k in ("name", "start_ns", "end_ns", "parent", "request",
+                      "reads", "read_ns", "replayed", "eager", "filtered",
+                      "gated"):
+                setattr(self, k, getattr(rec, k))
+
+    recs = _kalman_records()
+    ctx = _kalman_ctx()
+    monkeypatch.setattr(timing, "trace_records",
+                        lambda: [Counted(r) for r in recs])
+    assert _reader("kalman_launches_per_event")(ctx) == pytest.approx(20.0)
+    assert _reader("kalman_kernel_share")(ctx) is None
